@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels of ``dasp_tpu_torch/csrc``.
+
+Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, which is
+loaded with ``ctypes``.  This avoids ``torch.utils.cpp_extension.load``:
+sources that include PyTorch's headers take minutes to compile, a plain
+C interface takes seconds.
+
+The library lands in ``dasp_tpu_torch/_build/`` (gitignored), named by a
+hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.  The build happens on first use, never
+at import: a machine without ``nvcc`` imports the package and runs the
+plain PyTorch versions on CPU tensors.  A failed build raises; nothing
+falls back.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()`` cast to int; ``check`` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C name -> argument types (pointers and the stream as c_void_p, so a
+# 64-bit address is never cut to a 32-bit int)
+SIGNATURES = {
+    # wins, vals, idx, x2d, out, nv, P, stride, stream
+    "dasp_colsum_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # src, perm, y2, out, B, K, zero_row, stream
+    "dasp_outgather_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+def sources():
+    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources():
+        h.update(os.path.basename(f).encode())
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libdasp_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless a library of the same sources exists;
+    return its path.  Raises RuntimeError with nvcc's output on failure."""
+    out = _library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cu = [f for f in sources() if f.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, out)          # atomic: a concurrent build never sees
+    return out                    # a half-written library
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.dasp_cuda_error_name.argtypes = [ctypes.c_int]
+    lib.dasp_cuda_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        what = library().dasp_cuda_error_name(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({what}) at launch")
