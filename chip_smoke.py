@@ -5,22 +5,33 @@
 Phases, one or more printed lines each, every one raising on failure:
   1. device: needs torch.cuda; prints the card's name and power limit,
      and the device-memory copy rate (the roofline for the kernels);
-  2. build: compiles the CUDA kernels (colsum K1, outgather K2) from
-     dasp_tpu_torch/csrc with nvcc into dasp_tpu_torch/_build, and the
-     packer's native host library (native/, make);
+  2. build: compiles the CUDA kernels (colsum K1 and its fp64 instance
+     K3, outgather K2 and its fp64 instance K4, the multi-vector colsum
+     K5) from dasp_tpu_torch/csrc with nvcc into one library in
+     dasp_tpu_torch/_build, and the packer's native host library
+     (native/, make);
   3. kernels vs plain on the card, on the fixture every row family passes
-     through (mixed_categories(2048), as __graft_entry__.entry() packs it);
-  4. the f32 SpMV end to end at published SuiteSparse sizes (cop20k_like,
-     webbase_like from bench/suite.py): SpMVOperator on the card against
-     the f64 CSR golden, scaled by the backward-error mass max(|A||x|, 1);
-     the kernel launch counts of this phase must be non-zero; K1 and K2
-     against their plain versions at these shapes;
-  5. timing with CUDA events (median of trials of a chained loop in which
-     every step adds y[0]*1e-36 into x), each step issued eagerly and as
-     a CUDA-graph replay: the kernel path, the same path with the plain
-     versions, cuSPARSE (torch.sparse_csr_tensor @ x, first held to the
-     golden), and K1 and K2 alone beside their plain versions; plus a
-     torch.profiler breakdown of the kernel path's device time.
+     through (mixed_categories(2048), as __graft_entry__.entry() packs it):
+     every kernel instance (K1 f32 and bf16, K3, K2, K4, K5 at kv=4 with
+     f32, bf16 and f64 values) against its plain version on the same
+     tensors, and each K5 slice against K1 / K3 on its own x, bit for bit;
+  4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
+     webbase_like from bench/suite.py), one pack per matrix serving all
+     dtypes: SpMVOperator on the card in f32, f64 and bf16, and matmat
+     with 8 columns in f32, bf16 and f64, each against the f64 CSR golden
+     (for bf16 that of the bf16-rounded A and x), scaled by the
+     backward-error mass max(|A||x|, 1); every kernel instance's launch
+     count over this phase must be non-zero; then every instance against
+     its plain version at these shapes;
+  5. timing with CUDA events (median of trials), each step issued eagerly
+     and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop:
+     every step adds y[0]*1e-36 into x) in f32, f64 and bf16 on the kernel
+     path, the same path with the plain versions, and cuSPARSE
+     (torch.sparse_csr_tensor @ x, first held to the golden; f32 and
+     f64); matmat at 8 columns (two K5 passes of 4) against 8 single
+     SpMVs and cuSPARSE A @ X, in f32 and f64; every kernel instance alone
+     beside its plain version, with the bytes it must move; and a
+     torch.profiler breakdown of the f32 and f64 kernel paths.
 It then prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -32,16 +43,41 @@ import subprocess
 import sys
 import time
 
-# K1/K2 against their plain versions: both multiply the same f32 words and
-# sum in the same order, so they should agree exactly; the limit allows
-# for reordering by the compiler
-KERNEL_TOL = 1e-6
-E2E_TOL = 2e-6          # __graft_entry__.py:63-77 (mass-scaled, f32)
+# kernel vs plain version, on the error scaled by max(|plain|, 1): both
+# multiply the same words and sum in the same order, so they should agree
+# exactly; the limits allow for reordering by the compiler
+KERNEL_TOL = {"f32": 1e-6, "bf16": 1e-6, "f64": 1e-12}
+# end to end, on the error scaled by max(|A||x|, 1): f32 as
+# __graft_entry__.py:63-77; f64 native fp64 sums of up to ~5k terms;
+# bf16 against the golden of the bf16-rounded A and x, where y's own
+# rounding is at most 2^-8 of |y| <= the mass and x stays f32 (within
+# 2^-8 of the rounded x): at most 2^-7 = 7.8e-3 of the mass in all
+E2E_TOL = {"f32": 2e-6, "f64": 1e-10, "bf16": 1e-2}
+DTYPES = ("f32", "f64", "bf16")
 TRIALS = 5
+CHAIN = 10              # SpMVs per timed step (timing_loop(CHAIN - 1))
+K_COLS = 8              # matmat columns
+
+# kernel instance -> (source, the TPU kernel it replaces)
+INSTANCES = {
+    "colsum": ("colsum.cu", "pallas_backend.py:121"),
+    "colsum_bf16": ("colsum.cu", "pallas_backend.py:121"),
+    "colsum_f64": ("colsum.cu", "pallas_backend.py:277"),
+    "outgather": ("outgather.cu", "pallas_backend.py:437"),
+    "outgather_f64": ("outgather.cu", "pallas_backend.py:378"),
+    "colsum_multi": ("colsum_multi.cu", "pallas_backend.py:174"),
+    "colsum_multi_bf16": ("colsum_multi.cu", "pallas_backend.py:174"),
+    "colsum_multi_f64": ("colsum_multi.cu", "pallas_backend.py:174"),
+}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def inst(base, dtype):
+    """Name of a kernel instance: the f32 one bears the bare name."""
+    return base if dtype == "f32" else f"{base}_{dtype}"
 
 
 def scaled_err(a, b):
@@ -54,8 +90,8 @@ def scaled_err(a, b):
 
 
 def time_ms(step, iters):
-    """Median over TRIALS of the per-step device time of ``iters`` steps,
-    between two CUDA events, after one warm-up step."""
+    """Median over TRIALS of the device time of one call of ``step``
+    (``iters`` calls between two CUDA events, after one warm-up call)."""
     import torch
     step()
     torch.cuda.synchronize()
@@ -88,9 +124,14 @@ def graphed(step):
     return g.replay
 
 
+def eager_and_graph(step, iters):
+    """(eager ms, graph-replay ms) per call of ``step``."""
+    return time_ms(step, iters), time_ms(graphed(step), iters)
+
+
 def profile_line(step, iters):
-    """Device time per step by kernel (torch.profiler) and the device's
-    busy share of the wall time of ``iters`` eager steps."""
+    """Device time per call by kernel (torch.profiler) and the device's
+    busy share of the wall time of ``iters`` eager calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -111,35 +152,77 @@ def profile_line(step, iters):
     busy = sum(dev_us.values())
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     return (f"device {busy:.1f} us of {wall / iters * 1e6:.1f} us wall per "
-            f"step (busy {busy / (wall / iters * 1e6):.1%}, under the "
+            f"call (busy {busy / (wall / iters * 1e6):.1%}, under the "
             f"profiler); top: " + "; ".join(
                 f"{k[:60]} {v:.1f} us" for k, v in top))
 
 
-def compare_kernels(op, x2d):
-    """K1 per stream and K2 on the resulting y2 against their plain
-    versions on the same card tensors; returns the worst (scaled, abs)
-    errors of each."""
+def kernel_args(op, xs):
+    """The tensors each kernel instance of ``op``'s dtype takes for one
+    SpMV of xs[0] (K1/K3 per stream, K2/K4 on the resulting y2) and one
+    SpMM pass of the stacked xs (K5 per stream, kv = len(xs))."""
+    import torch
     from dasp_tpu_torch.ops import cuda_backend as cb
-    from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
-    from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
+    from dasp_tpu_torch.ops.colsum import colsum
     meta, arrays = op._meta, op._arrays
-    k1 = [0.0, 0.0]
-    partials = []
-    for (_, stride, _), st in zip(meta.streams, arrays["streams"]):
-        args = (st["wins"], st["vals"], st["idx"], x2d, stride)
-        got, ref = colsum(*args), colsum_plain(*args)
-        k1 = [max(u, v) for u, v in zip(k1, scaled_err(got, ref))]
-        partials.append(got)
-    y2, _ = cb.stack_y2(meta, arrays, partials, x2d)
-    got = outgather(arrays["out_src"], arrays["out_perm"], y2,
-                    meta.n_y2_rows)
-    ref = outgather_plain(arrays["out_src"], arrays["out_perm"], y2)
-    k2 = list(scaled_err(got, ref))
-    if not (k1[0] <= KERNEL_TOL and k2[0] <= KERNEL_TOL):
-        raise AssertionError(f"kernel vs plain: K1 {k1} K2 {k2} "
-                             f"(limit {KERNEL_TOL} scaled)")
-    return k1, k2, y2
+    cs = [(st["wins"], st["vals"], st["idx"], xs[0], s)
+          for (_, s, _), st in zip(meta.streams, arrays["streams"])]
+    y2, _ = cb.stack_y2(meta, arrays, [colsum(*a) for a in cs], xs[0])
+    x3d = torch.cat(xs)
+    cm = [(st["wins"], st["vals"], st["idx"], x3d, s, len(xs))
+          for (_, s, _), st in zip(meta.streams, arrays["streams"])]
+    return cs, (arrays["out_src"], arrays["out_perm"], y2), cm
+
+
+def compare_kernels(op, xs):
+    """Every kernel instance of ``op``'s dtype against its plain version
+    on the same card tensors, and each K5 slice against K1/K3 on its own
+    table (bit for bit).  Returns {instance: (scaled, abs) worst error}."""
+    import torch
+    from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
+    from dasp_tpu_torch.ops.colsum_multi import colsum_multi, \
+        colsum_multi_plain
+    from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
+    d = op.dtype
+    cs, og, cm = kernel_args(op, xs)
+    err = {inst("colsum", d): [0.0, 0.0], inst("colsum_multi", d): [0.0, 0.0]}
+    for a in cs:
+        e = scaled_err(colsum(*a), colsum_plain(*a))
+        err[inst("colsum", d)] = [max(u, v) for u, v in
+                                  zip(err[inst("colsum", d)], e)]
+    for a in cm:
+        got = colsum_multi(*a)
+        e = scaled_err(got, colsum_multi_plain(*a))
+        err[inst("colsum_multi", d)] = [max(u, v) for u, v in
+                                        zip(err[inst("colsum_multi", d)], e)]
+        for j, x in enumerate(xs):
+            if not torch.equal(got[j], colsum(a[0], a[1], a[2], x, a[4])):
+                raise AssertionError(f"K5 slice {j} != K1/K3 on its table "
+                                     f"({d}, stride {a[4]})")
+    ogd = "f64" if d == "f64" else "f32"
+    err[inst("outgather", ogd)] = list(scaled_err(
+        outgather(*og, op._meta.n_y2_rows), outgather_plain(*og)))
+    bad = {k: v for k, v in err.items() if not v[0] <= KERNEL_TOL[d]}
+    if bad:
+        raise AssertionError(f"kernel vs plain ({d}): {bad} "
+                             f"(limit {KERNEL_TOL[d]} scaled)")
+    return err
+
+
+def kernel_bytes(op, cs, og, cm):
+    """Bytes each kernel must move, computed from its shapes: the streamed
+    tables and the output (the x gathers hit L2 and are not counted);
+    K2/K4: its tables, y2 once and the output."""
+    nb = lambda t: t.numel() * t.element_size()
+    streams = sum(nb(a[0]) + nb(a[1]) + nb(a[2]) for a in cs)
+    out_el = 8 if op.dtype == "f64" else 4
+    rows = sum(a[1].shape[0] // a[4] for a in cs)
+    kv = cm[0][5] if cm else 1
+    return {
+        "colsum": streams + rows * 128 * out_el,
+        "outgather": sum(nb(t) for t in og) + op._meta.B_pad * 128 * out_el,
+        "colsum_multi": streams + kv * rows * 128 * out_el,
+    }
 
 
 def main():
@@ -159,6 +242,8 @@ def main():
     from dasp_tpu_torch.bench.suite import build_suite
     from dasp_tpu_torch.ops import _build, cuda_backend as cb
     from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
+    from dasp_tpu_torch.ops.colsum_multi import colsum_multi, \
+        colsum_multi_plain
     from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
     from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories
 
@@ -185,14 +270,14 @@ def main():
     # -- 2. build ------------------------------------------------------------
     t = time.perf_counter()
     _build.library()
-    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
+        f"source, {len(_build.SIGNATURES)} entry points: "
         f"{time.perf_counter() - t:.2f} s -> "
         f"{os.path.relpath(_build.build(), here)}")
     # the host library (Matrix Market parser, window router) that the
     # packer loads from native/.  Built here with g++ named explicitly:
     # an exported CXX without OpenMP support fails the Makefile's build,
-    # and the packer's no-library fallback cannot pack long rows (see
-    # ROADMAP.md, faults)
+    # and the numpy fallback packs the webbase_like arm far slower
     t = time.perf_counter()
     mk = subprocess.run(["make", "-C", os.path.join(here, "native"),
                          "CXX=g++"], capture_output=True, text=True,
@@ -204,17 +289,31 @@ def main():
         f"{time.perf_counter() - t:.2f} s")
 
     # -- 3. kernels vs plain on the entry fixture ----------------------------
+    err = {k: 0.0 for k in INSTANCES}
+
+    def note(errs):
+        for k, (_, a) in errs.items():
+            err[k] = max(err[k], a)
+
+    def rand_tables(op, seed):
+        rng = np.random.default_rng(seed)
+        return [op._prep_x(rng.standard_normal(op.n_cols))
+                for _ in range(cb.KV_SPMM)]
+
     t = time.perf_counter()
     csr = mixed_categories(2048, np.random.default_rng(7))
-    op = dt.SpMVOperator(csr, dtype="f32", device=dev)
-    x2d = op._prep_x(np.random.default_rng(3).standard_normal(csr.n_cols))
-    k1, k2, _ = compare_kernels(op, x2d)
-    log(f"[kernels] entry fixture {csr.n_rows}x{csr.n_cols} nnz={csr.nnz} "
-        f"streams={list(op._meta.streams)} k_used={op._meta.k_used}: "
-        f"K1 err {k1[0]:.3e} scaled ({k1[1]:.3e} abs), K2 err {k2[0]:.3e} "
-        f"scaled ({k2[1]:.3e} abs), limit {KERNEL_TOL}; "
-        f"{time.perf_counter() - t:.2f} s")
-    err = {"colsum": k1[1], "outgather": k2[1]}
+    plan = dt.build_wplan(csr)
+    for d in DTYPES:
+        op = dt.SpMVOperator(plan, dtype=d, device=dev)
+        errs = compare_kernels(op, rand_tables(op, 3))
+        note(errs)
+        log(f"[kernels] entry fixture {csr.n_rows}x{csr.n_cols} "
+            f"nnz={csr.nnz} {d} streams={list(op._meta.streams)} "
+            f"k_used={op._meta.k_used}: " + ", ".join(
+                f"{k} {s:.3e} scaled ({a:.3e} abs)"
+                for k, (s, a) in errs.items())
+            + f", limit {KERNEL_TOL[d]}; K5 slices == K1/K3 bit for bit")
+    log(f"[kernels] entry fixture done in {time.perf_counter() - t:.2f} s")
 
     # -- 4. the slice end to end at real size --------------------------------
     t = time.perf_counter()
@@ -224,136 +323,211 @@ def main():
     router = "native" if wplan._native_router() else "python"
     if router != "native":
         raise RuntimeError("the packer did not load native/libdasp_host.so")
-    ops, xs, goldens, scales = {}, {}, {}, {}
-    colsum.launches = outgather.launches = 0
+
+    def bf16_round(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).double().numpy()
+
+    def golden_mass(csr, x, dtype):
+        vals = bf16_round(csr.values) if dtype == "bf16" else csr.values
+        x = bf16_round(x) if dtype == "bf16" else x
+        g = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
+                      vals).spmv(x)
+        mass = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
+                         np.abs(vals)).spmv(np.abs(x))
+        return g, np.maximum(mass, 1.0)
+
+    def check(name, what, y, golden, scale, dtype, shape):
+        if y.shape != shape or not np.isfinite(y).all():
+            raise AssertionError(f"{name} {what}: y {y.shape} not finite / "
+                                 f"not of shape {shape}")
+        e = float((np.abs(y.astype(np.float64) - golden) / scale).max())
+        if not e <= E2E_TOL[dtype]:
+            raise AssertionError(f"{name} {what}: error {e:.3e} over the "
+                                 f"limit {E2E_TOL[dtype]} (mass-scaled)")
+        return e
+
+    def cusparse_matrix(csr, dtype):
+        """(torch CSR matrix on the card for cuSPARSE, its value dtype).
+        The suite's rows may repeat a column (the generators clip and draw
+        with replacement), which torch's CSR invariants reject; the product
+        sums such entries, as the golden does, and is held to it."""
+        vdt = torch.float64 if dtype == "f64" else torch.float32
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(csr.row_ptr.astype(np.int64)),
+            torch.from_numpy(csr.col_idx.astype(np.int64)),
+            torch.from_numpy(csr.values).to(vdt),
+            size=(csr.n_rows, csr.n_cols),
+            check_invariants=False).to(dev), vdt
+
+    ops, xs = {}, {}
+    for counter in (colsum, colsum_multi, outgather):
+        counter.launches = dict.fromkeys(counter.launches, 0)
     for name, csr in suite:
         t = time.perf_counter()
-        op = dt.SpMVOperator(csr, dtype="f32", device=dev)
-        pre = time.perf_counter() - t
-        x = np.random.default_rng(1).standard_normal(csr.n_cols)
-        t = time.perf_counter()
-        y = op(x)
-        run = time.perf_counter() - t
-        golden = csr.spmv(x)
-        mass = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
-                         np.abs(csr.values)).spmv(np.abs(x))
-        scale = np.maximum(mass, 1.0)
-        if not np.isfinite(y).all() or y.shape != (csr.n_rows,):
-            raise AssertionError(f"{name}: y not finite / wrong shape")
-        e2e = float((np.abs(y.astype(np.float64) - golden) / scale).max())
-        np.testing.assert_allclose(y / scale, golden / scale,
-                                   rtol=E2E_TOL, atol=E2E_TOL)
-        m = op._meta
-        log(f"[e2e] {name} {csr.n_rows}x{csr.n_cols} nnz={csr.nnz}: "
-            f"err {e2e:.3e} (mass-scaled, limit {E2E_TOL}); pack+lower+upload "
-            f"{pre:.2f} s (router {router}, relabel "
-            f"{'on' if op.plan.col_perm is not None else 'off'}, row_sort "
-            f"{'on' if op.plan.row_perm is not None else 'off'}); first call "
-            f"{run:.3f} s; streams={list(m.streams)} k_used={m.k_used} "
-            f"B_pad={m.B_pad} n_long={m.n_long} residue={m.overflow_meta} "
-            f"sub_plan={m.res is not None}")
-        ops[name], xs[name] = op, x
-        goldens[name], scales[name] = golden, scale
-    launches = {"colsum": colsum.launches, "outgather": outgather.launches}
+        plan = dt.build_wplan(csr)
+        pack = time.perf_counter() - t
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal(csr.n_cols)
+        X = rng.standard_normal((csr.n_cols, K_COLS))
+        xs[name] = x
+        for d in DTYPES:
+            t = time.perf_counter()
+            op = dt.SpMVOperator(plan, dtype=d, device=dev)
+            pre = time.perf_counter() - t
+            t = time.perf_counter()
+            y = op(x)
+            run = time.perf_counter() - t
+            golden, scale = golden_mass(csr, x, d)
+            e = check(name, f"{d} SpMV", y, golden, scale, d, (csr.n_rows,))
+            m = op._meta
+            log(f"[e2e] {name} {csr.n_rows}x{csr.n_cols} nnz={csr.nnz} {d}: "
+                f"err {e:.3e} (mass-scaled, limit {E2E_TOL[d]}); pack "
+                f"{pack:.2f} s (router {router}, relabel "
+                f"{'on' if plan.col_perm is not None else 'off'}, row_sort "
+                f"{'on' if plan.row_perm is not None else 'off'}), lower+"
+                f"upload {pre:.2f} s; first call {run:.3f} s; "
+                f"streams={list(m.streams)} k_used={m.k_used} "
+                f"B_pad={m.B_pad} n_long={m.n_long} "
+                f"residue={m.overflow_meta} sub_plan={m.res is not None}")
+            t = time.perf_counter()
+            Y = op.matmat(X)
+            run = time.perf_counter() - t
+            es = [check(name, f"{d} matmat column {j}", Y[:, j],
+                        *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
+                  for j in range(K_COLS)]
+            log(f"[e2e] {name} {d} matmat {K_COLS} columns (kv "
+                f"{cb.KV_SPMM}): worst column err {max(es):.3e} "
+                f"(mass-scaled, limit {E2E_TOL[d]}); first call {run:.3f} s")
+            ops[name, d] = op
+    launches = {}
+    for base, counter in (("colsum", colsum), ("colsum_multi", colsum_multi),
+                          ("outgather", outgather)):
+        for d, n in counter.launches.items():
+            launches[inst(base, d)] = n
     log(f"[e2e] kernel launches in this phase: {launches}")
-    if not all(launches.values()):
+    if set(launches) != set(INSTANCES) or not all(launches.values()):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
-    for name, op in ops.items():
+    for (name, d), op in ops.items():
         t = time.perf_counter()
-        k1, k2, _ = compare_kernels(op, op._prep_x(xs[name]))
-        err = {"colsum": max(err["colsum"], k1[1]),
-               "outgather": max(err["outgather"], k2[1])}
-        log(f"[kernels] {name}: K1 err {k1[0]:.3e} scaled ({k1[1]:.3e} abs), "
-            f"K2 err {k2[0]:.3e} scaled ({k2[1]:.3e} abs), limit "
-            f"{KERNEL_TOL}; {time.perf_counter() - t:.2f} s")
+        errs = compare_kernels(op, rand_tables(op, 5))
+        note(errs)
+        log(f"[kernels] {name} {d}: " + ", ".join(
+            f"{k} {s:.3e} scaled ({a:.3e} abs)"
+            for k, (s, a) in errs.items())
+            + f", limit {KERNEL_TOL[d]}; {time.perf_counter() - t:.2f} s")
 
     # -- 5. timing -----------------------------------------------------------
     # "eager": each step issued from Python as the operator runs it;
     # "graph": the same step captured once in a CUDA graph and replayed,
     # which removes the host's launch cost and leaves the device time
     alone = {}
-    for name, op in ops.items():
+    for name, csr in suite:
         t = time.perf_counter()
-        csr = dict(suite)[name]
-        meta, arrays = op._meta, op._arrays
-        steps = {}
-        for label, plain in (("kernel", False), ("plain", True)):
-            x2d = op._prep_x(xs[name])
+        x = xs[name]
+        flops = 2 * csr.nnz
+        for d in DTYPES:
+            op = ops[name, d]
+            steps = {}
+            for label, plain in (("kernel", False), ("plain", True)):
+                x2d = op._prep_x(x)
+                steps[label] = (lambda loop=op.timing_loop(CHAIN - 1, plain),
+                                x2d=x2d: loop(x2d))
+            if d != "bf16":
+                A, vdt = cusparse_matrix(csr, d)
+                xv = torch.from_numpy(x).to(vdt).to(dev)
+                golden, scale = golden_mass(csr, x, d)
+                check(name, f"cuSPARSE {d}", (A @ xv).cpu().numpy(), golden,
+                      scale, d, (csr.n_rows,))
 
-            def step(x2d=x2d, plain=plain):
-                y = cb.spmv_fn(meta, arrays, x2d, plain)
-                x2d.add_(y[0] * 1e-36)
-            steps[label] = step
-        A = torch.sparse_csr_tensor(
-            torch.from_numpy(csr.row_ptr.astype(np.int64)),
-            torch.from_numpy(csr.col_idx.astype(np.int64)),
-            torch.from_numpy(csr.values.astype(np.float32)),
-            size=(csr.n_rows, csr.n_cols), check_invariants=False).to(dev)
-        xv = torch.from_numpy(xs[name].astype(np.float32)).to(dev)
-        # the suite's rows may repeat a column (the generators clip and
-        # draw with replacement), which torch's CSR invariants reject; the
-        # product sums such entries, as the golden does: held to it here
-        yc = (A @ xv).double().cpu().numpy()
-        np.testing.assert_allclose(yc / scales[name], goldens[name]
-                                   / scales[name], rtol=E2E_TOL, atol=E2E_TOL)
+                def cusparse_loop(A=A, xv=xv):
+                    xc = xv.clone()
+                    for _ in range(CHAIN - 1):
+                        xc.add_((A @ xc)[0] * cb.TAP)
+                    return A @ xc
+                steps["cusparse"] = cusparse_loop
+            row = {}
+            for label, step in steps.items():
+                e, g = eager_and_graph(step, 2 if label == "plain" else 5)
+                row[f"{label} eager"], row[f"{label} graph"] = (
+                    e / CHAIN, g / CHAIN)
+            log(f"[time] {name} {d} nnz={csr.nnz} per SpMV: " + ", ".join(
+                f"{k} {v * 1e3:.1f} us ({flops / (v * 1e6):.2f} GFLOP/s)"
+                for k, v in row.items()) + f" [{card}]")
+            if d != "bf16":
+                log(f"[profile] {name} {d} kernel path, eager, per chain of "
+                    f"{CHAIN}: " + profile_line(steps["kernel"], 4))
 
-        def step_cusparse():
-            y = A @ xv
-            xv.add_(y[0] * 1e-36)
-        steps["cusparse"] = step_cusparse
-        row = {}
-        for label, step in steps.items():
-            row[f"{label} eager"] = time_ms(step, 100)
-            row[f"{label} graph"] = time_ms(graphed(step), 100)
-        log(f"[time] {name} nnz={csr.nnz} per SpMV: " + ", ".join(
-            f"{k} {v * 1e3:.1f} us ({2 * csr.nnz / (v * 1e6):.2f} GFLOP/s)"
-            for k, v in row.items()) + f" [{card}]; "
-            f"{time.perf_counter() - t:.2f} s")
-        log(f"[profile] {name} kernel path, eager: "
-            + profile_line(steps["kernel"], 20))
+        # matmat at K_COLS columns: two K5 passes of KV_SPMM against
+        # K_COLS single SpMVs and cuSPARSE A @ X, on the same X (no chain)
+        rng = np.random.default_rng(2)
+        X = rng.standard_normal((csr.n_cols, K_COLS))
+        for d in ("f32", "f64"):
+            op = ops[name, d]
+            meta, arrays = op._meta, op._arrays
+            tabs = [op._prep_x(X[:, j]) for j in range(K_COLS)]
+            x3ds = [torch.cat(tabs[c:c + cb.KV_SPMM])
+                    for c in range(0, K_COLS, cb.KV_SPMM)]
+            A, vdt = cusparse_matrix(csr, d)
+            Xd = torch.from_numpy(X).to(vdt).to(dev)
+            Yc = (A @ Xd).cpu().numpy()
+            for j in range(K_COLS):
+                check(name, f"cuSPARSE {d} A @ X column {j}", Yc[:, j],
+                      *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
+            steps = {
+                "matmat (K5)": lambda x3ds=x3ds, m=meta, a=arrays: [
+                    cb.spmm_fn(m, a, x3, cb.KV_SPMM) for x3 in x3ds],
+                f"{K_COLS} x SpMV": lambda tabs=tabs, m=meta, a=arrays: [
+                    cb.spmv_fn(m, a, x2) for x2 in tabs],
+                "cuSPARSE A @ X": lambda A=A, Xd=Xd: A @ Xd,
+            }
+            row = {k: eager_and_graph(s, 5) for k, s in steps.items()}
+            log(f"[time] {name} {d} matmat {K_COLS} columns, per call: "
+                + ", ".join(f"{k} eager {e * 1e3:.1f} us / graph "
+                            f"{g * 1e3:.1f} us ({K_COLS * flops / (g * 1e6):.2f}"
+                            f" GFLOP/s graphed)"
+                            for k, (e, g) in row.items()) + f" [{card}]")
 
-        # K1 and K2 alone at this matrix's shapes (one SpMV's worth: every
-        # stream's colsum; the outgather on its y2)
-        x2d = op._prep_x(xs[name])
-        _, _, y2 = compare_kernels(op, x2d)
-        cs_args = [(st["wins"], st["vals"], st["idx"], x2d, s)
-                   for (_, s, _), st in zip(meta.streams, arrays["streams"])]
-        og = (arrays["out_src"], arrays["out_perm"], y2)
-        pairs = {
-            "colsum": (lambda: [colsum(*a) for a in cs_args],
-                       lambda: [colsum_plain(*a) for a in cs_args]),
-            "outgather": (lambda: outgather(*og, meta.n_y2_rows),
-                          lambda: outgather_plain(*og)),
-        }
-        # bytes each kernel must move, computed from the shapes (K1: the
-        # streamed tables and its output, not the x gathers, which hit
-        # L2; K2: its tables, y2 once and its output)
-        nbytes = {
-            "colsum": sum(t.numel() * t.element_size()
-                          for st in arrays["streams"] for t in st.values())
-            + sum(nv * (8 // s) * 128 * 4 for _, s, nv in meta.streams),
-            "outgather": sum(t.numel() * t.element_size() for t in og)
-            + meta.B_pad * 128 * 4,
-        }
-        for k, (kern, plain) in pairs.items():
-            got = [time_ms(graphed(f), 100) for f in (kern, plain)]
-            gbs = nbytes[k] / (got[0] * 1e6)
-            log(f"[time] {k} alone at {name} shapes (graph replay): kernel "
-                f"{got[0] * 1e3:.1f} us, plain {got[1] * 1e3:.1f} us; eager: "
-                f"kernel {time_ms(kern, 100) * 1e3:.1f} us; kernel moves "
-                f"{nbytes[k] / 1e6:.2f} MB (computed) = {gbs:.0f} GB/s, "
-                f"{gbs / copy_gbs:.1%} of the copy rate [{card}]")
-            if name == "cop20k_like":
-                alone[k] = got
+        # every kernel instance alone at this matrix's shapes (one SpMV's
+        # worth: every stream's colsum, the outgather on its y2; one K5
+        # pass of KV_SPMM vectors over every stream)
+        for d in DTYPES:
+            op = ops[name, d]
+            cs, og, cm = kernel_args(op, rand_tables(op, 9))
+            nbytes = kernel_bytes(op, cs, og, cm)
+            pairs = {
+                inst("colsum", d): (
+                    "colsum", lambda cs=cs: [colsum(*a) for a in cs],
+                    lambda cs=cs: [colsum_plain(*a) for a in cs]),
+                inst("colsum_multi", d): (
+                    "colsum_multi", lambda cm=cm: [colsum_multi(*a)
+                                                   for a in cm],
+                    lambda cm=cm: [colsum_multi_plain(*a) for a in cm]),
+            }
+            if d != "bf16":        # bf16's y2 is f32: the f32 outgather
+                pairs[inst("outgather", d)] = (
+                    "outgather",
+                    lambda og=og, n=op._meta.n_y2_rows: outgather(*og, n),
+                    lambda og=og: outgather_plain(*og))
+            for k, (base, kern, plain) in pairs.items():
+                got = [time_ms(graphed(f), 20 if f is kern else 5)
+                       for f in (kern, plain)]
+                gbs = nbytes[base] / (got[0] * 1e6)
+                log(f"[time] {k} alone at {name} shapes (graph replay): "
+                    f"kernel {got[0] * 1e3:.1f} us, plain {got[1] * 1e3:.1f} "
+                    f"us; eager: kernel {time_ms(kern, 20) * 1e3:.1f} us; "
+                    f"kernel moves {nbytes[base] / 1e6:.2f} MB (computed) = "
+                    f"{gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate "
+                    f"[{card}]")
+                if name == "cop20k_like":
+                    alone[k] = got
+        log(f"[time] {name} done in {time.perf_counter() - t:.2f} s")
 
-    replaces = {"colsum": "dasp_tpu/ops/pallas_backend.py:121",
-                "outgather": "dasp_tpu/ops/pallas_backend.py:437"}
     log(json.dumps({"kernels": [
-        {"name": k, "route": "cuda",
-         "source": f"dasp_tpu_torch/csrc/{k}.cu", "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": err[k],
-         "ms": alone[k][0], "plain_ms": alone[k][1]}
-        for k in ("colsum", "outgather")]}))
+        {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",
+         "replaces": f"dasp_tpu/ops/{r}", "launches": launches[k],
+         "max_abs_err": err[k], "ms": alone[k][0], "plain_ms": alone[k][1]}
+        for k, (s, r) in INSTANCES.items()]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,16 +1,19 @@
 """dasp_tpu_torch — the windowed-gather SpMV of ``dasp_tpu`` on PyTorch.
 
 The port runs the same packed plan (``build_wplan``) as the JAX package;
-its device side is PyTorch tensors, with the two kernels of the f32 path
-(colsum, outgather) hand-written in CUDA C++ for Hopper (``csrc/``) and
-run as their plain PyTorch versions on CPU tensors.  It imports no JAX.
+its device side is PyTorch tensors.  SpMV runs in f32, bf16 and f64
+(native fp64) and SpMM (``matmat``) in all three, through kernels
+hand-written in CUDA C++ for Hopper (``csrc/``: colsum, its fp64 and
+multi-vector instances, outgather), which run as their plain PyTorch
+versions on CPU tensors.  It imports no JAX.
 
 Quick start::
 
     import dasp_tpu_torch as dt
     csr = dt.load_matrix("matrix.mtx")
-    op = dt.SpMVOperator(csr, dtype="f32", device="cuda")
-    y = op(x)
+    op = dt.SpMVOperator(csr, dtype="f64", device="cuda")  # f32, bf16, f64
+    y = op(x)                 # y = A x, in original row order
+    Y = op.matmat(X)          # Y = A X, X of shape (n_cols, k)
 """
 
 from .config import DaspConfig, DEFAULT_CONFIG

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``dasp_tpu_torch/csrc``.
 
 Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``.  This avoids ``torch.utils.cpp_extension.load``:
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+which is loaded with ``ctypes``.  This avoids ``torch.utils.cpp_extension.load``:
 sources that include PyTorch's headers take minutes to compile, a plain
 C interface takes seconds.
 
@@ -30,17 +31,27 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C name -> argument types (pointers and the stream as c_void_p, so a
 # 64-bit address is never cut to a 32-bit int)
+_COLSUM = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
+_COLSUM_MULTI = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _P)
 SIGNATURES = {
     # wins, vals, idx, x2d, out, nv, P, stride, stream
-    "dasp_colsum_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dasp_colsum_f32": _COLSUM,
+    "dasp_colsum_bf16": _COLSUM,
+    "dasp_colsum_f64": _COLSUM,
+    # wins, vals, idx, x3d, out, nv, P, stride, S, kv, stream
+    "dasp_colsum_multi_f32": _COLSUM_MULTI,
+    "dasp_colsum_multi_bf16": _COLSUM_MULTI,
+    "dasp_colsum_multi_f64": _COLSUM_MULTI,
     # src, perm, y2, out, B, K, zero_row, stream
-    "dasp_outgather_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dasp_outgather_f32": _OUTGATHER,
+    "dasp_outgather_f64": _OUTGATHER,
 }
 
 
@@ -74,12 +85,27 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cu = [f for f in sources() if f.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
+    objs = [f"{tmp}.{os.path.basename(f)}.o" for f in cu]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o, f]
+                         for f, o in zip(cu, objs))]
+    try:
+        runs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        if all(rc == 0 for _, _, rc in runs):
+            r = subprocess.run(link, capture_output=True, text=True)
+            runs.append((link, r.stdout + r.stderr, r.returncode))
+        for cmd, text, rc in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                   f"{text}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)          # atomic: a concurrent build never sees
     return out                    # a half-written library
 

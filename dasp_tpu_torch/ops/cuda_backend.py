@@ -1,18 +1,27 @@
-"""f32 windowed-gather SpMV executor on PyTorch tensors.
+"""Windowed-gather SpMV and SpMM executor on PyTorch tensors, in f32, bf16
+and f64.
 
-The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for the single-device
-f32 path:
+The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
 
 * ``plan_to_arrays`` lowers a ``WPlan`` into the kernels' tables (numpy),
-  table for table equal to the reference's f32 lowering (:594-886) off
-  the TPU; ``arrays_to_device`` moves them onto a device, and
+  table for table equal to the reference's lowering (:594-886) off the
+  TPU; ``arrays_to_device`` moves them onto a device, and
   ``arrays_from_reference`` does the same for tables the JAX package
   lowered, so both packages can run the very same tables.
-* ``spmv_fn`` runs one colsum launch per stream (K1, ``ops/colsum.py``),
-  the tensor glue of ``_assemble_y``, and one outgather launch (K2,
-  ``ops/outgather.py``).
-* ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1364) on an
-  explicit device.
+* ``spmv_fn`` runs one colsum launch per stream (K1, or K3 in f64,
+  ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
+  outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
+* ``spmm_fn`` runs one multi-vector colsum launch per stream (K5,
+  ``ops/colsum_multi.py``) for kv vectors, then the glue per vector.
+* ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474) on an
+  explicit device: ``__call__``, ``matmat``, ``timing_loop``.
+
+Dtypes: f32 runs f32 throughout.  bf16 stores the stream values as bf16
+and runs x, the sums and the glue in f32, rounding y to bf16 at the end
+(:930-931).  f64 is native fp64 throughout (values, x, sums, glue), where
+the reference carries double-double f32 pairs because the TPU has no fp64
+datapath; the reference's bf16 lo store (:663-677) and f32-colsum tier
+(:678-692) are not ported.
 
 The kernels run on CUDA tensors; on CPU tensors the wrappers run their
 plain PyTorch versions, so the whole path runs on either device.
@@ -31,7 +40,13 @@ from ..sparse import CSRMatrix
 from ..utils import gc_paused
 from ..wplan import WPlan, SUB, LANES, LONG_PACK, K_SOURCES, build_wplan
 from .colsum import colsum, colsum_plain
+from .colsum_multi import colsum_multi, colsum_multi_plain
 from .outgather import outgather, outgather_plain
+
+DTYPES = ("f32", "bf16", "f64")
+# host (numpy) type of the stream values per dtype; numpy has no bfloat16,
+# so bf16 values are carried as their uint16 bit patterns until upload
+VALUE_NP = {"f32": np.float32, "bf16": np.uint16, "f64": np.float64}
 
 # Streams are padded to a multiple of this many vregs: the reference's
 # off-TPU block (BV_INTERPRET, pallas_backend.py:46), so the port's tables
@@ -45,10 +60,21 @@ OB = 64          # outgather block alignment of B_pad (pallas_backend.py:48)
 RES_REPACK_MIN = 16384
 RES_MAX_DEPTH = 3
 
+# x vectors per multi-vector colsum launch (SpMM), for every dtype
+# (pallas_backend.py:163).  The reference halves kv until the stacked x
+# tables fit VMEM (SPMM_X_VMEM_BYTES); here they live in device memory,
+# so kv is a constant.
+KV_SPMM = 4
+
+# timing_loop's feedback: each chained step adds y[0] * TAP into x, so no
+# step can be skipped or hoisted and x stays numerically unchanged
+TAP = 1e-36
+
 
 class WMeta(NamedTuple):
-    """Static description of a lowered plan (the f32 fields of the
-    reference's ``WMeta``, pallas_backend.py:542-578)."""
+    """Static description of a lowered plan (the reference's ``WMeta``,
+    pallas_backend.py:542-578, without its TPU-only fields ``interpret``
+    and ``dd_f32``)."""
     dtype: str
     s_rows: int
     n_rows: int
@@ -113,7 +139,21 @@ def _og_split(gmax: np.ndarray, k_used: int
 # ---------------------------------------------------------------------------
 
 
-def _lower_streams(plan: WPlan, arrays: Dict):
+def bf16_bits(a) -> np.ndarray:
+    """float32 round-to-nearest-even to bfloat16, as uint16 bit patterns:
+    the bits of the reference's ``astype(ml_dtypes.bfloat16)``, which also
+    rounds through float32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _host_values(v: np.ndarray, dtype: str) -> np.ndarray:
+    if dtype == "bf16":
+        return bf16_bits(v)
+    return v.astype(VALUE_NP[dtype])
+
+
+def _lower_streams(plan: WPlan, arrays: Dict, dtype: str):
     shapes = []
     for s in plan.streams:
         nv = s.n_vregs
@@ -136,8 +176,8 @@ def _lower_streams(plan: WPlan, arrays: Dict):
         idx[:nv * SUB] = s.idx
         wins[:nv, 1:] = s.wins
         wins[:nv, 0] = np.maximum(s.win_counts, 1) if s.P > 1 else 1
-        vals = np.zeros((nv_pad * SUB, LANES), dtype=np.float32)
-        vals[:nv * SUB] = s.vals.astype(np.float32)
+        vals = np.zeros((nv_pad * SUB, LANES), dtype=VALUE_NP[dtype])
+        vals[:nv * SUB] = _host_values(s.vals, dtype)
         arrays["streams"].append(dict(idx=idx, wins=wins, vals=vals))
         shapes.append((s.P, s.stride, nv_pad))
     return tuple(shapes)
@@ -162,19 +202,24 @@ def _long_gather(plan: WPlan):
 
 @gc_paused
 def plan_to_arrays(plan, dtype: str = "f32", _res_depth: int = 0):
-    """Lower a WPlan (or CSRMatrix) to (WMeta, numpy table dict): the f32
-    branch of pallas_backend.plan_to_arrays (:594-886) as it lowers off
-    the TPU.  _res_depth guards the residue sub-plan recursion."""
+    """Lower a WPlan (or CSRMatrix) to (WMeta, numpy table dict):
+    pallas_backend.plan_to_arrays (:594-886) as it lowers off the TPU.
+
+    Only the stream values and the residue values depend on ``dtype``:
+    f32 as float32; bf16 streams as bf16 bit patterns (uint16, see
+    ``bf16_bits``) with float32 residue values, as the reference stores
+    them; f64 as one float64 array each, where the reference stores
+    double-double (vals_hi, vals_lo) pairs.  Every other table equals the
+    reference's for every dtype.  _res_depth guards the residue sub-plan
+    recursion."""
     if isinstance(plan, CSRMatrix):
         plan = build_wplan(plan)
-    if dtype != "f32":
-        raise NotImplementedError(
-            f"dtype {dtype!r}: only f32 is ported (bf16 and f64 are "
-            "ROADMAP.md queue 1, modules 4 and 5)")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype!r} must be one of {DTYPES}")
 
     arrays: Dict = {"streams": [],
                     "long_idx": [lg.idx for lg in plan.longs]}
-    stream_shapes = _lower_streams(plan, arrays)
+    stream_shapes = _lower_streams(plan, arrays, dtype)
     sell_segs = tuple((g.stream, g.vreg_offset, g.n_slices, g.w8, g.stride)
                       for g in plan.sell)
     long_groups = tuple((lg.stream, li) for li, lg in enumerate(plan.longs))
@@ -272,7 +317,8 @@ def plan_to_arrays(plan, dtype: str = "f32", _res_depth: int = 0):
         fb = ~row_ok                   # rows whose block had no free slot
         entry["fb_pos"] = pos_of[fb].astype(np.int32)
         entry["fb_rows"] = urows[fb].astype(np.int32)
-        entry["vals"] = o.values.astype(np.float32)
+        entry["vals"] = o.values.astype(
+            np.float64 if dtype == "f64" else np.float32)
         arrays["overflow"] = entry
 
     # trim the source table to the plan-wide max of used slots
@@ -302,13 +348,16 @@ def plan_to_arrays(plan, dtype: str = "f32", _res_depth: int = 0):
 
 
 def prep_x(meta: WMeta, x, col_perm=None) -> np.ndarray:
-    """Host-side: pad x to the (s_rows,128) f32 table; ``col_perm``
-    (plan.col_perm, old->new) scatters x into relabeled column order."""
-    xp = np.zeros(meta.s_rows * LANES, dtype=np.float32)
+    """Host-side: pad x to the (s_rows,128) table, float64 for f64 plans
+    and float32 otherwise (bf16 plans take an f32 x, as the reference's);
+    ``col_perm`` (plan.col_perm, old->new) scatters x into relabeled
+    column order."""
+    dt = np.float64 if meta.dtype == "f64" else np.float32
+    xp = np.zeros(meta.s_rows * LANES, dtype=dt)
     if col_perm is not None:
-        xp[col_perm] = np.asarray(x, dtype=np.float32)[:meta.n_cols]
+        xp[col_perm] = np.asarray(x, dtype=dt)[:meta.n_cols]
     else:
-        xp[:meta.n_cols] = np.asarray(x, dtype=np.float32)[:meta.n_cols]
+        xp[:meta.n_cols] = np.asarray(x, dtype=dt)[:meta.n_cols]
     return xp.reshape(meta.s_rows, LANES)
 
 
@@ -324,14 +373,35 @@ def _index(a, hi: int, device) -> torch.Tensor:
                             ).to(device)
 
 
+def _values_to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """Value table -> tensor; uint16 bf16 bit patterns become bfloat16
+    (``torch.from_numpy`` takes no bfloat16 array)."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(
+            dev).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
 def arrays_to_device(meta: WMeta, arrays: Dict, device) -> Dict:
     """numpy tables (plan_to_arrays layout) -> tensors on ``device``: the
-    kernels' tables in their own dtypes (wins i32, vals f32, idx i16,
-    out_src i32, out_perm i8), the glue's indices as clamped int64."""
+    kernels' tables in their own dtypes (wins i32, vals f32 / bf16 / f64,
+    idx i16, out_src i32, out_perm i8), the glue's indices as clamped
+    int64."""
     dev = torch.device(device)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    # the kernels index and type-pun without checks: reject value tables
+    # of another dtype or shape than the plan's
+    for st in arrays["streams"]:
+        if (st["vals"].dtype != VALUE_NP[meta.dtype]
+                or st["vals"].shape != st["idx"].shape
+                or st["idx"].shape[0] != st["wins"].shape[0] * SUB):
+            raise ValueError(
+                f"stream tables do not fit a {meta.dtype} plan: vals "
+                f"{st['vals'].dtype} {st['vals'].shape}, idx "
+                f"{st['idx'].shape}, wins {st['wins'].shape}")
     out: Dict = {
-        "streams": [dict(wins=t(st["wins"]), vals=t(st["vals"]),
+        "streams": [dict(wins=t(st["wins"]),
+                         vals=_values_to_device(st["vals"], dev),
                          idx=t(st["idx"])) for st in arrays["streams"]],
         "out_src": t(arrays["out_src"]),
         "out_perm": t(arrays["out_perm"]),
@@ -357,24 +427,59 @@ def arrays_to_device(meta: WMeta, arrays: Dict, device) -> Dict:
             fb_pos=_index(o["fb_pos"][keep], n_sums, dev))
         n_y2 += o["lane_table"].shape[0] // LANES
     # the kernels index without bounds checks: reject tables that would
-    # read outside x2d or y2
+    # read outside x2d or y2.  A window must stay inside the S = s_rows
+    # rows of one x table: K1/K3 read x2d (S rows), and K5 reads table j
+    # of its stacked (kv*S, 128) x3d at rows j*S + window + q, q < 8.
     if int(arrays["out_src"].max(initial=0)) >= n_y2:
         raise ValueError("out_src names a row outside y2")
     if any(int(st["wins"][:, 1:].max(initial=0)) + SUB > meta.s_rows
+           or int(st["wins"][:, 1:].min(initial=0)) < 0
            for st in arrays["streams"]):
-        raise ValueError("a window runs past the end of x2d")
+        raise ValueError("a window runs outside the x table")
     if meta.res is not None:
         out["res"] = arrays_to_device(meta.res, arrays["res"], dev)
     return out
 
 
+def _ref_f64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """A reference double-double value pair -> float64 (hi + lo: within
+    2^-48 of the value it was split from)."""
+    if hi.dtype != np.float32 or lo.dtype != np.float32:
+        raise ValueError(
+            f"reference f64 values stored as {hi.dtype}/{lo.dtype}: only "
+            "float32 (hi, lo) pairs are carried across (a bf16 lo store, "
+            "the reference's big-plan gate, loses the low bits)")
+    return hi.astype(np.float64) + lo.astype(np.float64)
+
+
+def _tables_from_reference(dtype: str, arrays: Dict) -> Dict:
+    """The reference's numpy tables in this package's layout: bf16 values
+    as their uint16 bits, f64 (hi, lo) pairs as one float64 array."""
+    def values(entry):
+        entry = dict(entry)
+        if dtype == "f64":
+            entry["vals"] = _ref_f64(entry.pop("vals_hi"),
+                                     entry.pop("vals_lo"))
+        elif dtype == "bf16" and entry["vals"].itemsize == 2:
+            entry["vals"] = entry["vals"].view(np.uint16)
+        return entry
+
+    out = dict(arrays, streams=[values(st) for st in arrays["streams"]])
+    if arrays["overflow"] is not None:
+        out["overflow"] = values(arrays["overflow"])
+    if "res" in arrays:
+        out["res"] = _tables_from_reference(dtype, arrays["res"])
+    return out
+
+
 def arrays_from_reference(meta, arrays: Dict, device):
-    """The JAX package's f32 lowering (the WMeta and numpy dict that
-    ``dasp_tpu.ops.pallas_backend.plan_to_arrays`` returns) -> this
-    package's (WMeta, device tensors): the reference's tables carried
-    across, so both packages run the very same tables."""
-    if meta.dtype != "f32":
-        raise NotImplementedError("only f32 tables are carried across")
+    """The JAX package's lowering (the WMeta and numpy dict that
+    ``dasp_tpu.ops.pallas_backend.plan_to_arrays`` returns, for any
+    dtype) -> this package's (WMeta, device tensors): the reference's
+    tables carried across, so both packages run the very same tables.
+    f64 values become hi + lo in fp64; bf16 values keep their bits."""
+    if meta.dtype not in DTYPES:
+        raise ValueError(f"reference dtype {meta.dtype!r} not in {DTYPES}")
 
     def convert(m):
         return WMeta(**{f: getattr(m, f) for f in WMeta._fields
@@ -382,7 +487,8 @@ def arrays_from_reference(meta, arrays: Dict, device):
                      res=None if m.res is None else convert(m.res))
 
     ours = convert(meta)
-    return ours, arrays_to_device(ours, arrays, device)
+    return ours, arrays_to_device(
+        ours, _tables_from_reference(meta.dtype, arrays), device)
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +498,24 @@ def arrays_from_reference(meta, arrays: Dict, device):
 
 def spmv_fn(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
             plain: bool = False) -> torch.Tensor:
-    """x2d (s_rows,128) f32 -> y (n_rows,) f32 in the plan's row order.
+    """x2d (s_rows,128) (f64 for f64 plans, f32 otherwise) -> y (n_rows,)
+    in the plan's row order: f32, bf16 or f64 by the plan's dtype.
     ``plain`` runs the kernels' plain PyTorch versions on any device (the
     smoke's comparison path); otherwise the wrappers pick by device."""
+    return _narrow(meta, _spmv_wide(meta, arrays, x2d, plain))
+
+
+def _narrow(meta: WMeta, y: torch.Tensor) -> torch.Tensor:
+    """The glue's y -> the plan's output dtype: bf16 plans round once, at
+    the end (pallas_backend.py:930-931); f32 and f64 are unchanged."""
+    return y.to(torch.bfloat16) if meta.dtype == "bf16" else y
+
+
+def _spmv_wide(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
+               plain: bool) -> torch.Tensor:
+    """The SpMV in the glue's dtype (f32 for f32 and bf16, f64 for f64):
+    one colsum per stream (K1 for f32/bf16 values, K3 for f64), then the
+    glue and the outgather."""
     cs = colsum_plain if plain else colsum
     partials = [cs(st["wins"], st["vals"], st["idx"], x2d, stride)
                 for (_, stride, _), st in zip(meta.streams,
@@ -402,13 +523,34 @@ def spmv_fn(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
     return _assemble_y(meta, arrays, partials, x2d, plain)
 
 
+def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
+            kv: int = KV_SPMM, plain: bool = False) -> torch.Tensor:
+    """Multi-vector SpMV (SpMM, pallas_backend.py:1017-1040): x3d
+    (kv*s_rows, 128), kv stacked x tables (f64 for f64 plans, f32
+    otherwise) -> y (kv, n_rows) in the plan's row order and output dtype.
+    One K5 launch per stream reads the A stream once for all kv vectors;
+    the glue and the outgather then run per vector.  For f64 this is one
+    fp64 pass, where the reference runs two f32 cross-product passes
+    (spmm_fn_dd, :1043)."""
+    S = meta.s_rows
+    cm = colsum_multi_plain if plain else colsum_multi
+    multi = [cm(st["wins"], st["vals"], st["idx"], x3d, stride, kv)
+             for (_, stride, _), st in zip(meta.streams, arrays["streams"])]
+    ys = [_assemble_y(meta, arrays, [m[j] for m in multi],
+                      x3d[j * S:(j + 1) * S], plain) for j in range(kv)]
+    return _narrow(meta, torch.stack(ys))
+
+
 def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
     """Tensor glue from per-stream partials to the outgather's input
-    (pallas_backend.py:938-990): segment level sums, long-row scalar rows,
-    the zero row (index n_y2_rows), then the residue lane-table rows.
+    (pallas_backend.py:938-990, and :1111-1197 for f64): segment level
+    sums, long-row scalar rows, the zero row (index n_y2_rows), then the
+    residue lane-table rows.  It runs in the partials' dtype, which x2d
+    shares: f32 for f32 and bf16 plans, f64 for f64 (plain fp64 sums in
+    place of the reference's compensated double-double ones).
     Returns (y2 (R2,128), per-row residue sums or None)."""
-    f32, dev = torch.float32, x2d.device
-    zero = torch.zeros(1, dtype=f32, device=dev)
+    dt, dev = x2d.dtype, x2d.device
+    zero = torch.zeros(1, dtype=dt, device=dev)
     y2_parts = []
     for stream, off, n_slices, w8, stride in meta.sell_segs:
         # the stream may run at a finer stride than the segment's own
@@ -436,7 +578,7 @@ def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
             meta.n_long_rows, LONG_PACK)
         y2_parts.append(torch.nn.functional.pad(srows, (0, 1)))
 
-    y2_parts.append(torch.zeros((1, LANES), dtype=f32, device=dev))
+    y2_parts.append(torch.zeros((1, LANES), dtype=dt, device=dev))
 
     rsums = None
     o = arrays["overflow"]
@@ -453,8 +595,9 @@ def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
 
 def _assemble_y(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor,
                 plain: bool) -> torch.Tensor:
-    """Partials -> y (pallas_backend.py:935-1014): y2 stack, outgather,
-    then the residue's scatter fallback and sub-plan."""
+    """Partials -> y in the glue's dtype (pallas_backend.py:935-1014, and
+    :1107-1227 for f64): y2 stack, outgather (K2, or K4 for f64), then the
+    residue's scatter fallback and sub-plan."""
     y2, rsums = stack_y2(meta, arrays, partials, x2d)
     o = arrays["overflow"]
     if plain:
@@ -467,27 +610,34 @@ def _assemble_y(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor,
     if rsums is not None and o["fb_rows"].shape[0]:
         y = y.index_add(0, o["fb_rows"], rsums[o["fb_pos"]])
     if meta.res is not None:
-        y = y + spmv_fn(meta.res, arrays["res"], x2d, plain)
+        # the sub-plan's y joins in the glue's dtype, before a bf16 plan's
+        # one rounding; the reference rounds it to bf16 first (:1012)
+        y = y + _spmv_wide(meta.res, arrays["res"], x2d, plain)
     return y
 
 
 class TorchSpMV:
-    """Packed f32 SpMV for one matrix on one device: ``y = op(x)``.
+    """Packed SpMV for one matrix on one device, in f32, bf16 or f64:
+    ``y = op(x)`` and ``Y = op.matmat(X)``.
 
     Built from a CSRMatrix (packed here, with ``config``) or a prebuilt
-    WPlan.  The tables live on ``device`` for the operator's lifetime;
-    ``__call__`` takes and returns host vectors in original order, and
+    WPlan, which serves every dtype (the plan is dtype-independent).  The
+    tables live on ``device`` for the operator's lifetime; ``__call__``
+    and ``matmat`` take and return host arrays in original order, and
     ``device_call`` maps a device x table to a device y in the plan's
-    (possibly relabeled) row order."""
+    (possibly relabeled) row order.  ``config.strict_f64`` changes
+    nothing: the f64 path is native fp64, always strict."""
 
-    def __init__(self, csr, device, config=None):
+    def __init__(self, csr, device, config=None, dtype: str = "f32"):
         from ..config import DEFAULT_CONFIG
         t0 = time.perf_counter()
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype {dtype!r} must be one of {DTYPES}")
         self.plan = (csr if isinstance(csr, WPlan)
                      else build_wplan(csr, config or DEFAULT_CONFIG))
-        self.dtype = "f32"
+        self.dtype = dtype
         self.device = torch.device(device)
-        self._meta, arrays = plan_to_arrays(self.plan, "f32")
+        self._meta, arrays = plan_to_arrays(self.plan, dtype)
         self._arrays = arrays_to_device(self._meta, arrays, self.device)
         self.preprocess_seconds = time.perf_counter() - t0
 
@@ -501,6 +651,22 @@ class TorchSpMV:
 
     def device_call(self, x2d: torch.Tensor) -> torch.Tensor:
         return spmv_fn(self._meta, self._arrays, x2d)
+
+    def timing_loop(self, iters: int, plain: bool = False):
+        """A callable x2d -> y running ``iters`` chained SpMVs on the
+        device, each adding y[0] * TAP into x (a copy of x2d, in x's
+        dtype: fp64 for f64), then one more SpMV whose y it returns: the
+        streamed branch of PallasSpMV.timing_loop (:1317-1338).  ``plain``
+        runs the kernels' plain versions (the smoke's comparison)."""
+        meta, arrays = self._meta, self._arrays
+
+        def run(x2d: torch.Tensor) -> torch.Tensor:
+            x = x2d.clone()
+            for _ in range(iters):
+                y = spmv_fn(meta, arrays, x, plain)
+                x.add_(y[0].to(x.dtype) * TAP)
+            return spmv_fn(meta, arrays, x, plain)
+        return run
 
     def perm_in(self, v):
         """Host: original-order vector -> the operator's internal
@@ -518,5 +684,32 @@ class TorchSpMV:
         return np.asarray(y)[self.plan.row_perm]
 
     def __call__(self, x) -> np.ndarray:
-        y = self.device_call(self._prep_x(x))
-        return self.perm_out(y.cpu().numpy())
+        """y in original row order: float32 for f32, float64 for f64, and
+        for bf16 the bf16 values as float32 (numpy has no bfloat16)."""
+        return self.perm_out(_to_host(self.device_call(self._prep_x(x))))
+
+    def matmat(self, X) -> np.ndarray:
+        """Multi-vector SpMV (SpMM): Y = A @ X for X of shape (n_cols, k),
+        in original order (PallasSpMV.matmat, :1411-1474).  The k columns
+        run KV_SPMM at a time through ``spmm_fn`` (the last chunk padded
+        with zero tables, whose rows are dropped).  Y is float64 for f64
+        operators and for a float64 X, else X's dtype."""
+        X = np.asarray(X)
+        k = X.shape[1]
+        cols = []
+        for c0 in range(0, k, KV_SPMM):
+            xs = [prep_x(self._meta, X[:, j], self.plan.col_perm)
+                  for j in range(c0, min(c0 + KV_SPMM, k))]
+            xs += [np.zeros_like(xs[0])] * (KV_SPMM - len(xs))
+            x3d = torch.from_numpy(np.concatenate(xs)).to(self.device)
+            cols.append(_to_host(spmm_fn(self._meta, self._arrays, x3d)))
+        out = np.concatenate(cols)[:k].T
+        dt = (np.float64 if self.dtype == "f64" or X.dtype == np.float64
+              else X.dtype)
+        return self.perm_out(out.astype(dt))
+
+
+def _to_host(y: torch.Tensor) -> np.ndarray:
+    """Device y -> numpy; bf16 as float32 (exact), since numpy has no
+    bfloat16."""
+    return (y.float() if y.dtype == torch.bfloat16 else y).cpu().numpy()

@@ -1,13 +1,15 @@
-"""outgather (K2): y-block assembly kernel and its plain version.
+"""outgather (K2, and its fp64 instance K4): y-block assembly kernel and
+its plain version.
 
-Replaces ``dasp_tpu/ops/pallas_backend.py:_make_outgather`` (:437); the
-CUDA source is ``dasp_tpu_torch/csrc/outgather.cu``, whose header note
-says what bounds it on Hopper and why one launch covers every
-``og_ranges`` range.
+Replaces ``dasp_tpu/ops/pallas_backend.py:_make_outgather`` (:437) and, in
+fp64, ``_make_outgather_dd`` (:378); the CUDA source is
+``dasp_tpu_torch/csrc/outgather.cu``, whose header note says what bounds
+it on Hopper and why one launch covers every ``og_ranges`` range.  The
+instance follows y2's dtype: f32 (K2) or f64 (K4).
 
 ``outgather`` takes a CPU tensor to ``outgather_plain`` and a CUDA tensor
 to the kernel; there is no fallback from one to the other.
-``outgather.launches`` counts kernel launches.
+``outgather.launches`` counts kernel launches per dtype.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ import torch
 from ..wplan import LANES
 from . import _build
 
+DTYPES = {torch.float32: "f32", torch.float64: "f64"}   # y2 -> instance
+
 
 def outgather_plain(src: torch.Tensor, perm: torch.Tensor,
                     y2: torch.Tensor) -> torch.Tensor:
-    """(src (B,K) i32, perm (K,B,128) i8, y2 (R2,128) f32) -> (B,128) f32:
+    """(src (B,K) i32, perm (K,B,128) i8, y2 (R2,128) f32 or f64) ->
+    (B,128) in y2's dtype:
     out[b, l] = sum_k y2[src[b,k], perm[k,b,l]], summed in slot order
     (the emulator semantics of tests/test_wplan.py:83-88, in tensors)."""
     acc = torch.gather(y2[src[:, 0].long()], 1, perm[0].long())
@@ -31,23 +36,20 @@ def outgather_plain(src: torch.Tensor, perm: torch.Tensor,
 
 def outgather(src: torch.Tensor, perm: torch.Tensor, y2: torch.Tensor,
               zero_row: int) -> torch.Tensor:
-    """K2 on CUDA tensors, ``outgather_plain`` on CPU tensors.  A slot
+    """K2 (K4 for f64 y2) on CUDA tensors, ``outgather_plain`` on CPU
+    tensors.  A slot
     whose source is ``zero_row`` (the all-zero y2 row) is skipped by the
     kernel; the plain version adds the zero row, with the same result."""
-    if y2.device.type == "cpu":
-        return outgather_plain(src, perm, y2)
-    if y2.device.type != "cuda":
+    if y2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"outgather: unsupported device {y2.device}")
-    if y2.device.index != torch.cuda.current_device():
-        # the kernel library launches on the current device's context
-        raise ValueError(f"outgather: {y2.device} is not the current "
-                         "CUDA device (use torch.cuda.device(...))")
+    if y2.dtype not in DTYPES:
+        raise ValueError(f"outgather: unsupported y2 dtype {y2.dtype}")
     B, K = src.shape
     dev = y2.device
     for name, t, dt, shape in (
             ("src", src, torch.int32, (B, K)),
             ("perm", perm, torch.int8, (K, B, LANES)),
-            ("y2", y2, torch.float32, (y2.shape[0], LANES))):
+            ("y2", y2, y2.dtype, (y2.shape[0], LANES))):
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
@@ -55,13 +57,20 @@ def outgather(src: torch.Tensor, perm: torch.Tensor, y2: torch.Tensor,
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not 0 <= zero_row < y2.shape[0]:
         raise ValueError(f"outgather: zero_row {zero_row} outside y2")
-    out = torch.empty((B, LANES), dtype=torch.float32, device=dev)
-    rc = _build.library().dasp_outgather_f32(
+    if dev.type == "cpu":
+        return outgather_plain(src, perm, y2)
+    if dev.index != torch.cuda.current_device():
+        # the kernel library launches on the current device's context
+        raise ValueError(f"outgather: {dev} is not the current "
+                         "CUDA device (use torch.cuda.device(...))")
+    out = torch.empty((B, LANES), dtype=y2.dtype, device=dev)
+    entry = f"dasp_outgather_{DTYPES[y2.dtype]}"
+    rc = getattr(_build.library(), entry)(
         src.data_ptr(), perm.data_ptr(), y2.data_ptr(), out.data_ptr(),
         B, K, zero_row, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "dasp_outgather_f32")
-    outgather.launches += 1
+    _build.check(rc, entry)
+    outgather.launches[DTYPES[y2.dtype]] += 1
     return out
 
 
-outgather.launches = 0
+outgather.launches = {"f32": 0, "f64": 0}

@@ -11,20 +11,22 @@ not ported: the windowed path runs on CPU tensors too.
 from __future__ import annotations
 
 from .config import DaspConfig
-from .ops.cuda_backend import TorchSpMV
+from .ops.cuda_backend import DTYPES, TorchSpMV  # noqa: F401 (DTYPES)
 from .sparse import CSRMatrix
-
-DTYPES = ("f32", "bf16", "f64")
 
 
 class SpMVOperator(TorchSpMV):
-    """Packed SpMV for one matrix: ``y = op(x)``.
+    """Packed SpMV for one matrix: ``y = op(x)``, ``Y = op.matmat(X)``.
 
     Args:
-      csr: host CSR matrix, or a prebuilt WPlan.
-      dtype: "f32".  "bf16" and "f64" are not ported yet (ROADMAP.md
-        queue 1, modules 4 and 5) and raise NotImplementedError.
-      config: packing tunables (ignored for a prebuilt WPlan).
+      csr: host CSR matrix, or a prebuilt WPlan (one plan serves every
+        dtype).
+      dtype: "f32"; "bf16" (bf16 values, f32 x and sums, y rounded to
+        bf16 and returned as float32, numpy having no bfloat16); or "f64"
+        (native fp64 throughout, returned as float64).
+      config: packing tunables (ignored for a prebuilt WPlan);
+        ``strict_f64`` is accepted and changes nothing, the f64 path
+        being strict fp64 always.
       device: where the tables live and the kernels run ("cuda", "cpu",
         a torch.device); CUDA tensors run the hand-written kernels, CPU
         tensors their plain PyTorch versions.
@@ -32,13 +34,7 @@ class SpMVOperator(TorchSpMV):
 
     def __init__(self, csr, dtype: str = "f32",
                  config: DaspConfig | None = None, *, device):
-        if dtype not in DTYPES:
-            raise ValueError(f"dtype must be one of {DTYPES}")
-        if dtype != "f32":
-            raise NotImplementedError(
-                f"dtype {dtype!r} is not ported yet (ROADMAP.md queue 1, "
-                f"module {4 if dtype == 'bf16' else 5})")
-        super().__init__(csr, device, config)
+        super().__init__(csr, device, config, dtype)
 
 
 def spmv(csr: CSRMatrix, x, dtype: str = "f32",

@@ -1599,7 +1599,7 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     # (dasp_f16.h:1162-1446).
     _nat = _native_router()
     _native_long_done = False
-    if _nat is not None and scalar_owners and _nat.has_pack_long():
+    if _nat and scalar_owners and _nat.has_pack_long():
         cls_tab = np.asarray(P_CLASSES, dtype=np.int64)
 
         def _pack_call(rs, re_, base_c, base_v):

@@ -29,11 +29,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py",
           "io/__init__.py", "io/mmio.py", "io/native.py",
           "bench/suite.py", "bench/fem.py"]
-# the one edit a copy carries: bench/fem.py's docstring cites the upstream
-# README by an absolute path of the machine it was written on; the copy
-# cites it as "reference README.md"
+# the edits a copy carries, one each: bench/fem.py's docstring cites the
+# upstream README by an absolute path of the machine it was written on (the
+# copy cites it as "reference README.md"); wplan.py's long-row packer
+# tested `_nat is not None`, but _native_router() returns False, not None,
+# without native/libdasp_host.so, so the no-library fallback crashed on
+# long rows (the copy tests `_nat`; see test_no_native_router_packs_long_rows)
 COPY_EDITS = {"bench/fem.py": (rb"``/[\w/]+/README\.md",
-                               b"``reference README.md")}
+                               b"``reference README.md"),
+              "wplan.py": (rb"if _nat is not None and scalar_owners",
+                           b"if _nat and scalar_owners")}
 
 
 def _split_fixture(rng, n=26 * 64 * 128):
@@ -170,9 +175,148 @@ def test_arrays_from_reference_matches_own_lowering():
 
 def test_lowering_rejects_unported_dtypes():
     plan = build_wplan(CASES["tiny"](np.random.default_rng(0)))
-    for dtype in ("bf16", "f64"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for dtype in ("f16", "fp8", "f32x2"):
+        with pytest.raises(ValueError, match="must be one of"):
             cb.plan_to_arrays(plan, dtype)
+
+
+def _ref_values(ref, dtype):
+    """The reference's value table of one entry (stream or residue) as
+    float64, and the entry without it."""
+    ref = dict(ref)
+    if dtype == "f64":
+        hi, lo = ref.pop("vals_hi"), ref.pop("vals_lo")
+        assert hi.dtype == lo.dtype == np.float32
+        return hi.astype(np.float64) + lo.astype(np.float64), ref
+    return ref.pop("vals").astype(np.float64), ref
+
+
+def _assert_same_dtype_tables(ours, ref, dtype, path="arrays"):
+    """The port's bf16 / f64 lowering against the reference's.  bf16: the
+    stream values are bit-equal (the port's uint16 bits, the reference's
+    ml_dtypes.bfloat16) and the residue values equal.  f64: every value is
+    within 2^-48 (relative) of the reference's hi + lo, the bound of a
+    double-double split of a float64.  Every other table is equal."""
+    ours = dict(ours)
+    ref = dict(ref)
+    entries = [("streams", i) for i in range(len(ours["streams"]))]
+    if ours["overflow"] is not None:
+        entries.append(("overflow", None))
+    for key, i in entries:
+        o = ours[key] if i is None else ours[key][i]
+        r = ref[key] if i is None else ref[key][i]
+        o = dict(o)
+        ov = o.pop("vals")
+        if dtype == "bf16" and key == "streams":
+            assert ov.dtype == np.uint16 and r["vals"].itemsize == 2
+            np.testing.assert_array_equal(ov, r["vals"].view(np.uint16),
+                                          err_msg=f"{path}.{key}[{i}]")
+            r = {k: v for k, v in r.items() if k != "vals"}
+        else:
+            assert ov.dtype == (np.float64 if dtype == "f64"
+                                else np.float32), (path, key, ov.dtype)
+            rv, r = _ref_values(r, dtype)
+            np.testing.assert_array_less(
+                np.abs(ov - rv), 2.0 ** -48 * np.abs(ov) + 1e-300,
+                err_msg=f"{path}.{key}[{i}]")
+        _assert_same(o, r, f"{path}.{key}[{i}]")
+        if i is None:
+            ours.pop(key)
+            ref.pop(key)
+    ours.pop("streams")
+    ref.pop("streams")
+    if "res" in ours:
+        _assert_same_dtype_tables(ours.pop("res"), ref.pop("res"), dtype,
+                                  f"{path}.res")
+    _assert_same(ours, ref, path)
+
+
+@pytest.mark.parametrize("name", list(LOWER_CASES))
+@pytest.mark.parametrize("dtype", ["bf16", "f64"])
+def test_plan_to_arrays_dtype_matches_reference(name, dtype):
+    csr = LOWER_CASES[name](np.random.default_rng(0))
+    meta, arrays = cb.plan_to_arrays(build_wplan(csr), dtype)
+    ref_meta, ref_arrays = pb.plan_to_arrays(ref_build_wplan(_to_ref(csr)),
+                                             dtype)
+    assert meta.dtype == dtype
+    _assert_same_meta(meta, ref_meta)
+    _assert_same_dtype_tables(arrays, ref_arrays, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f64"])
+def test_plan_to_arrays_dtype_residue_subplan(dtype, monkeypatch):
+    """The residue sub-plan lowers per dtype like the main plan."""
+    monkeypatch.setattr(cb, "RES_REPACK_MIN", 1)
+    monkeypatch.setattr(pb, "RES_REPACK_MIN", 1)
+    rng = np.random.default_rng(0)
+    n = 40_000
+    csr = tsp.random_csr(n, n, rng.integers(1, 8, size=n), rng)
+    meta, arrays = cb.plan_to_arrays(build_wplan(csr), dtype)
+    ref_meta, ref_arrays = pb.plan_to_arrays(ref_build_wplan(_to_ref(csr)),
+                                             dtype)
+    assert meta.res is not None and meta.res.dtype == dtype
+    _assert_same_meta(meta, ref_meta)
+    _assert_same_dtype_tables(arrays, ref_arrays, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f64"])
+def test_arrays_from_reference_dtype_matches_own_lowering(dtype):
+    """The reference's bf16 / f64 tables carried across equal the port's
+    own on the device: bf16 bit for bit, f64 values within 2^-48 (hi + lo
+    against the float64 the port lowers), all else equal."""
+    csr = LOWER_CASES["mixed"](np.random.default_rng(0))
+    meta, arrays = cb.plan_to_arrays(build_wplan(csr), dtype)
+    ours = cb.arrays_to_device(meta, arrays, "cpu")
+    ref_meta, ref_arrays = cb.arrays_from_reference(
+        *pb.plan_to_arrays(ref_build_wplan(_to_ref(csr)), dtype), "cpu")
+    assert ref_meta == meta
+    want = {"bf16": torch.bfloat16, "f64": torch.float64}[dtype]
+    for a, b in zip(ours["streams"], ref_arrays["streams"]):
+        assert a["vals"].dtype == b["vals"].dtype == want
+        if dtype == "bf16":
+            assert torch.equal(a["vals"].view(torch.int16),
+                               b["vals"].view(torch.int16))
+        else:
+            assert bool(((a["vals"] - b["vals"]).abs()
+                         <= 2.0 ** -48 * a["vals"].abs()).all())
+        for k in ("wins", "idx"):
+            assert torch.equal(a[k], b[k])
+    for k in ("out_src", "out_perm", "long_gat"):
+        assert torch.equal(ours[k], ref_arrays[k])
+
+
+def test_arrays_from_reference_refuses_bf16_lo_store(monkeypatch):
+    """A reference f64 plan past its big-plan gate stores the lo values
+    as bf16; carrying that across would lose low bits, so it is refused."""
+    monkeypatch.setattr(pb, "DD_LO16_MIN_BYTES", 0)
+    csr = CASES["fem"](np.random.default_rng(0))
+    ref = pb.plan_to_arrays(ref_build_wplan(_to_ref(csr)), "f64")
+    with pytest.raises(ValueError, match="bf16 lo store"):
+        cb.arrays_from_reference(*ref, "cpu")
+
+
+@pytest.mark.parametrize("name", ["random_long", "mixed"])
+def test_no_native_router_packs_long_rows(name, monkeypatch):
+    """Without native/libdasp_host.so, _native_router() returns False; the
+    port's packer must then pack long rows through its numpy fallback
+    (the reference's copy tested `is not None` and raised AttributeError:
+    'bool' object has no attribute 'has_pack_long')."""
+    import dasp_tpu_torch.wplan as twplan
+    monkeypatch.setattr(twplan, "_NATIVE_ROUTER", False)
+    assert twplan._native_router() is False
+    rng = np.random.default_rng(0)
+    csr = (tsp.random_csr(6, 4000, np.array([256, 300, 1000, 2048, 257,
+                                             4000]), rng)
+           if name == "random_long" else tsp.mixed_categories(500, rng))
+    plan = build_wplan(csr)
+    assert plan.n_long, "fixture must have long rows"
+    from dasp_tpu_torch import SpMVOperator
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    scale = np.maximum(np.abs(golden), 1.0)
+    y = SpMVOperator(plan, device="cpu")(x)
+    np.testing.assert_allclose(y / scale, golden / scale, rtol=2e-5,
+                               atol=2e-5)
 
 
 _NO_JAX = r"""

@@ -7,16 +7,21 @@ the very same tables (``arrays_from_reference``).  The CUDA kernels
 themselves are checked against the plain versions on the card by
 ``chip_smoke.py`` (this file imports JAX, which that machine lacks).
 
-Tolerance 1e-6 on the error scaled by max(|ref|, 1): both sides multiply
-the same f32 words, and their sums of at most 8 (colsum) or 7
-(outgather) terms differ only in order.
+Tolerances, on the error scaled by max(|ref|, 1):
+- 1e-6 for f32 and bf16 values: both sides multiply the same f32 words
+  (bf16 values upcast exactly), and their sums of at most 8 (colsum) or 7
+  (outgather) terms differ only in order;
+- 1e-10 for f64: the port runs native fp64 on hi + lo of the reference's
+  double-double tables (within 2^-48 of the split values), the reference
+  double-double arithmetic (~2^-44 per operation), so the two differ by a
+  few units of 2^-44 of the row's mass.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dasp_tpu.ops import pallas_backend as pb
+from dasp_tpu.ops import dd, pallas_backend as pb
 from dasp_tpu.sparse import (CSRMatrix, circuit_like, mixed_categories,
                              powerlaw_like, random_csr)
 from dasp_tpu.wplan import build_wplan
@@ -26,6 +31,7 @@ from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
 
 torch.set_num_threads(1)
 TOL = 1e-6
+TOL_F64 = 1e-10
 
 
 def _split_fixture(rng, n=26 * 64 * 128):
@@ -54,10 +60,10 @@ OUTGATHER_CASES = {
 }
 
 
-def _lowered(csr):
+def _lowered(csr, dtype="f32"):
     """Reference lowering -> (port meta, CPU tensors), plus the reference's
     numpy tables."""
-    ref_meta, ref_arrays = pb.plan_to_arrays(build_wplan(csr), "f32")
+    ref_meta, ref_arrays = pb.plan_to_arrays(build_wplan(csr), dtype)
     meta, arrays = cb.arrays_from_reference(ref_meta, ref_arrays, "cpu")
     return ref_meta, ref_arrays, meta, arrays
 
@@ -129,3 +135,96 @@ def test_wrappers_refuse_other_devices():
         colsum(meta, meta, meta, meta, 8)
     with pytest.raises(ValueError, match="unsupported device"):
         outgather(meta, meta, meta, 0)
+
+
+@pytest.mark.parametrize("name", list(COLSUM_CASES))
+def test_colsum_plain_bf16_matches_pallas(name):
+    """K1 with bf16 values: the port's colsum on the reference's bf16
+    tables (carried bit for bit) against _make_colsum on the same tables,
+    f32 x."""
+    rng = np.random.default_rng(0)
+    csr = COLSUM_CASES[name](rng)
+    ref_meta, ref_arrays, meta, arrays = _lowered(csr, "bf16")
+    x2d = rng.standard_normal((meta.s_rows, 128)).astype(np.float32)
+    xt = torch.from_numpy(x2d)
+    for (P, stride, nv), st, ref_st in zip(meta.streams, arrays["streams"],
+                                           ref_arrays["streams"]):
+        assert st["vals"].dtype == torch.bfloat16
+        ref = pb._make_colsum(P, meta.s_rows, nv, True, stride)(
+            ref_st["wins"], ref_st["vals"], ref_st["idx"], x2d)
+        ours = colsum(st["wins"], st["vals"], st["idx"], xt, stride)
+        assert ours.dtype == torch.float32
+        assert _scaled_err(ours.numpy(), ref) <= TOL, (P, stride)
+
+
+@pytest.mark.parametrize("name", list(COLSUM_CASES))
+def test_colsum_plain_f64_matches_pallas_dd(name):
+    """K3: the port's fp64 colsum against _make_colsum_dd's hi + lo, on
+    the same tables (the port's values are the reference's hi + lo) and
+    the same x (split into hi/lo for the reference)."""
+    rng = np.random.default_rng(0)
+    csr = COLSUM_CASES[name](rng)
+    ref_meta, ref_arrays, meta, arrays = _lowered(csr, "f64")
+    x2d = rng.standard_normal((meta.s_rows, 128))
+    xh, xl = dd.from_f64(x2d)
+    xt = torch.from_numpy(x2d)
+    for (P, stride, nv), st, ref_st in zip(meta.streams, arrays["streams"],
+                                           ref_arrays["streams"]):
+        oh, ol = pb._make_colsum_dd(P, meta.s_rows, nv, True, stride)(
+            ref_st["wins"], ref_st["vals_hi"], ref_st["vals_lo"],
+            ref_st["idx"], xh, xl)
+        ours = colsum(st["wins"], st["vals"], st["idx"], xt, stride)
+        assert ours.dtype == torch.float64
+        assert ours.shape == (nv * 8 // stride, 128)
+        assert _scaled_err(ours.numpy(), dd.to_f64(np.asarray(oh),
+                                                  np.asarray(ol))) <= TOL_F64
+
+
+@pytest.mark.parametrize("name", list(OUTGATHER_CASES))
+def test_outgather_plain_f64_matches_pallas_dd(name):
+    """K4: the port's fp64 outgather against _make_outgather_dd on the
+    same y2, split into hi/lo pairs for the reference."""
+    rng = np.random.default_rng(0)
+    csr = OUTGATHER_CASES[name](rng)
+    ref_meta, ref_arrays, meta, arrays = _lowered(csr, "f64")
+    x2d = torch.from_numpy(rng.standard_normal((meta.s_rows, 128)))
+    partials = [colsum_plain(st["wins"], st["vals"], st["idx"], x2d, s)
+                for (_, s, _), st in zip(meta.streams, arrays["streams"])]
+    y2, _ = cb.stack_y2(meta, arrays, partials, x2d)
+    assert y2.dtype == torch.float64
+    yh, yl = dd.from_f64(y2.numpy())
+    R2 = yh.shape[0]
+    if len(ref_meta.og_ranges) > 1:
+        pairs = [pb._make_outgather_dd(b1 - b0, R2, k, True)(s, p, yh, yl)
+                 for (b0, b1, k), s, p in zip(ref_meta.og_ranges,
+                                              ref_arrays["og_src"],
+                                              ref_arrays["og_perm"])]
+        ref = np.concatenate([dd.to_f64(np.asarray(h), np.asarray(lo))
+                              for h, lo in pairs])
+    else:
+        h, lo = pb._make_outgather_dd(meta.B_pad, R2, meta.k_used, True)(
+            ref_arrays["out_src"], ref_arrays["out_perm"], yh, yl)
+        ref = dd.to_f64(np.asarray(h), np.asarray(lo))
+    ours = outgather(arrays["out_src"], arrays["out_perm"], y2,
+                     meta.n_y2_rows)
+    assert ours.dtype == torch.float64 and ours.shape == (meta.B_pad, 128)
+    assert _scaled_err(ours.numpy(), ref) <= TOL_F64
+
+
+def test_wrappers_refuse_other_dtypes():
+    """A value or y2 dtype that no kernel instance takes, or an x table
+    of another dtype than the values', raises on either device."""
+    wins = torch.zeros((1, 2), dtype=torch.int32)
+    idx = torch.zeros((8, 128), dtype=torch.int16)
+    x32 = torch.zeros((8, 128), dtype=torch.float32)
+    with pytest.raises(ValueError, match="unsupported value dtype"):
+        colsum(wins, torch.zeros((8, 128), dtype=torch.float16), idx, x32, 8)
+    with pytest.raises(ValueError, match="x must be"):
+        colsum(wins, torch.zeros((8, 128), dtype=torch.float64), idx, x32, 8)
+    with pytest.raises(ValueError, match="x must be"):
+        colsum(wins, torch.zeros((8, 128), dtype=torch.bfloat16), idx,
+               x32.double(), 8)
+    src = torch.zeros((1, 1), dtype=torch.int32)
+    perm = torch.zeros((1, 1, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="unsupported y2 dtype"):
+        outgather(src, perm, torch.zeros((2, 128), dtype=torch.bfloat16), 1)

@@ -199,10 +199,13 @@ def test_slice_runs_reference_tables():
 def test_operator_dtypes_and_entry_points():
     rng = np.random.default_rng(0)
     csr = CASES["fem"](rng)
-    for dtype, err in (("bf16", NotImplementedError),
-                       ("f64", NotImplementedError), ("f16", ValueError)):
-        with pytest.raises(err):
+    for dtype in ("f16", "fp8", "f32x2"):
+        with pytest.raises(ValueError):
             dt.SpMVOperator(csr, dtype=dtype, device="cpu")
     x = rng.standard_normal(csr.n_cols)
     y = dt.spmv(csr, x, device="cpu")
     assert dt.verify(csr, y, x, rtol=TOL)
+    # bf16 and f64 are ported (tests/test_torch_dtypes.py); both run here
+    assert dt.verify(csr, dt.spmv(csr, x, "f64", device="cpu"), x,
+                     rtol=1e-10)
+    assert dt.spmv(csr, x, "bf16", device="cpu").dtype == np.float32
