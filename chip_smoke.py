@@ -7,31 +7,39 @@ Phases, one or more printed lines each, every one raising on failure:
      and the device-memory copy rate (the roofline for the kernels);
   2. build: compiles the CUDA kernels (colsum K1 and its fp64 instance
      K3, outgather K2 and its fp64 instance K4, the multi-vector colsum
-     K5) from dasp_tpu_torch/csrc with nvcc into one library in
+     K5, the resident executor K6 and the L2 probe T4) from
+     dasp_tpu_torch/csrc with nvcc into one library in
      dasp_tpu_torch/_build, and the packer's native host library
      (native/, make);
   3. kernels vs plain on the card, on the fixture every row family passes
      through (mixed_categories(2048), as __graft_entry__.entry() packs it):
      every kernel instance (K1 f32 and bf16, K3, K2, K4, K5 at kv=4 with
      f32, bf16 and f64 values) against its plain version on the same
-     tensors, and each K5 slice against K1 / K3 on its own x, bit for bit;
+     tensors, each K5 slice against K1 / K3 on its own x, and K6 in f32,
+     bf16 and f64 at 1 and 3 steps, all bit for bit;
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16, and matmat
-     with 8 columns in f32, bf16 and f64, each against the f64 CSR golden
-     (for bf16 that of the bf16-rounded A and x), scaled by the
-     backward-error mass max(|A||x|, 1); every kernel instance's launch
-     count over this phase must be non-zero; then every instance against
-     its plain version at these shapes;
+     with 8 columns in f32, bf16 and f64, on operators built with
+     force_streamed=True (the streamed path), and the resident
+     timing loop (K6, a chain of 10) of a default operator, each against
+     the f64 CSR golden (for bf16 that of the bf16-rounded A and x),
+     scaled by the backward-error mass max(|A||x|, 1), and the resident y
+     against the streamed y; every kernel instance's launch count over
+     this phase must be non-zero; then every instance against its plain
+     version at these shapes;
   5. timing with CUDA events (median of trials), each step issued eagerly
-     and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop:
-     every step adds y[0]*1e-36 into x) in f32, f64 and bf16 on the kernel
-     path, the same path with the plain versions, and cuSPARSE
-     (torch.sparse_csr_tensor @ x, first held to the golden; f32 and
-     f64); matmat at 8 columns (two K5 passes of 4) against 8 single
-     SpMVs and cuSPARSE A @ X, in f32 and f64; every kernel instance alone
-     beside its plain version, with the bytes it must move; and a
-     torch.profiler breakdown of the f32 and f64 kernel paths.
+     and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop
+     on the streamed operators: every step adds y[0]*1e-36 into x) in f32,
+     f64 and bf16 on the kernel path, the same path with the plain
+     versions, and cuSPARSE (torch.sparse_csr_tensor @ x, first held to
+     the golden; f32 and f64); K6 at chains of 10 and 100 beside them,
+     and alone with the bytes a step moves; matmat at 8 columns (two K5
+     passes of 4) against 8 single SpMVs and cuSPARSE A @ X, in f32 and
+     f64; every kernel instance alone beside its plain version, with the
+     bytes it must move and its bound; a torch.profiler breakdown of the
+     f32 and f64 streamed kernel paths; and the T4 sweep (the rate of a
+     chained re-read of a 6-192 MB stream against the copy rate).
 It then prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -55,20 +63,39 @@ KERNEL_TOL = {"f32": 1e-6, "bf16": 1e-6, "f64": 1e-12}
 E2E_TOL = {"f32": 2e-6, "f64": 1e-10, "bf16": 1e-2}
 DTYPES = ("f32", "f64", "bf16")
 TRIALS = 5
-CHAIN = 10              # SpMVs per timed step (timing_loop(CHAIN - 1))
+CHAIN = 10              # SpMVs per timed step (streamed: timing_loop(CHAIN
+                        # - 1); resident: timing_loop(CHAIN))
+LONG_CHAIN = 100        # the longer resident chain
 K_COLS = 8              # matmat columns
+# the least time the card could take (the bound_ms of the kernels line):
+# NVIDIA's H100 SXM data sheet, device memory 3.35 TB/s; float32 outside
+# the tensor cores 67 TFLOP/s (bf16 values are multiplied in f32), fp64
+# 34 TFLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 67e12, "f64": 34e12}
 
-# kernel instance -> (source, the TPU kernel it replaces)
+# kernel instance -> (source, the TPU kernel it replaces); the K6
+# instances run as TorchSpMV.timing_loop of a resident operator
+OPS = "dasp_tpu/ops"
 INSTANCES = {
-    "colsum": ("colsum.cu", "pallas_backend.py:121"),
-    "colsum_bf16": ("colsum.cu", "pallas_backend.py:121"),
-    "colsum_f64": ("colsum.cu", "pallas_backend.py:277"),
-    "outgather": ("outgather.cu", "pallas_backend.py:437"),
-    "outgather_f64": ("outgather.cu", "pallas_backend.py:378"),
-    "colsum_multi": ("colsum_multi.cu", "pallas_backend.py:174"),
-    "colsum_multi_bf16": ("colsum_multi.cu", "pallas_backend.py:174"),
-    "colsum_multi_f64": ("colsum_multi.cu", "pallas_backend.py:174"),
+    "colsum": ("colsum.cu", f"{OPS}/pallas_backend.py:121"),
+    "colsum_bf16": ("colsum.cu", f"{OPS}/pallas_backend.py:121"),
+    "colsum_f64": ("colsum.cu", f"{OPS}/pallas_backend.py:277"),
+    "outgather": ("outgather.cu", f"{OPS}/pallas_backend.py:437"),
+    "outgather_f64": ("outgather.cu", f"{OPS}/pallas_backend.py:378"),
+    "colsum_multi": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:174"),
+    "colsum_multi_bf16": ("colsum_multi.cu",
+                          f"{OPS}/pallas_backend.py:174"),
+    "colsum_multi_f64": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:174"),
+    "resident": ("resident.cu", f"{OPS}/resident.py:452"),
+    "resident_bf16": ("resident.cu", f"{OPS}/resident.py:452"),
+    "resident_f64": ("resident.cu", f"{OPS}/resident.py:452"),
+    "resident_probe": ("resident_probe.cu", "tools/resident_probe.py:27"),
 }
+# T4 is a probe, not on the SpMV path: its launches are counted over its
+# own sweep (phase 5), every other instance's over phase 4
+MAIN_PATH = tuple(k for k in INSTANCES if k != "resident_probe")
+PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
 
 
 def log(msg):
@@ -225,6 +252,55 @@ def kernel_bytes(op, cs, og, cm):
     }
 
 
+def bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` of the dtype's arithmetic, at the
+    data sheet's peaks."""
+    t_b, t_o = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def resident_bytes(op):
+    """(bytes one K6 step streams, bytes one K6 call must move).  A step
+    reads every stream's wins, vals and idx and the outgather's src and
+    perm, writes y2 and reads it back, and writes out.  A call reads each
+    input once (those tables, the fold and incidence tables, x) and writes
+    out once, whatever its number of steps."""
+    nb = lambda t: t.numel() * t.element_size()
+    meta, arrays = op._meta, op._arrays
+    res = arrays["resident"]
+    el = 8 if op.dtype == "f64" else 4
+    tables = (sum(nb(st[k]) for st in arrays["streams"]
+                  for k in ("wins", "vals", "idx"))
+              + nb(res["src"]) + nb(arrays["out_perm"]))
+    out = meta.B_pad * 128 * el
+    step = tables + 2 * (meta.n_y2_rows + 1) * 128 * el + out
+    call = (tables + sum(nb(res[k]) for k in ("fold", "inc_ptr", "inc_tot",
+                                               "inc_mult", "desc"))
+            + meta.s_rows * 128 * el + out)
+    return step, call
+
+
+def compare_resident(op, x2d, steps=(1, 3)):
+    """K6 against its plain version on the same card tensors, bit for bit
+    (ops/resident.py pins the order of every sum, and the residue
+    correction after the loop is the same torch code on both sides).
+    Returns the worst (scaled, abs) error."""
+    import torch
+    from dasp_tpu_torch.ops.resident import resident_loop, \
+        resident_loop_plain
+    worst = [0.0, 0.0]
+    for n in steps:
+        got = resident_loop(op._meta, op._arrays, x2d, n)
+        want = resident_loop_plain(op._meta, op._arrays, x2d, n)
+        e = scaled_err(got, want)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"K6 {op.dtype} at {n} steps differs from "
+                                 f"its plain version: {e} (scaled, abs)")
+        worst = [max(a, b) for a, b in zip(worst, e)]
+    return worst
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -245,6 +321,9 @@ def main():
     from dasp_tpu_torch.ops.colsum_multi import colsum_multi, \
         colsum_multi_plain
     from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
+    from dasp_tpu_torch.ops.resident import resident_loop, \
+        resident_loop_plain
+    from dasp_tpu_torch.probes import resident_probe as t4
     from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories
 
     smi = subprocess.run(
@@ -307,6 +386,13 @@ def main():
         op = dt.SpMVOperator(plan, dtype=d, device=dev)
         errs = compare_kernels(op, rand_tables(op, 3))
         note(errs)
+        if not op.resident:
+            raise AssertionError(f"entry fixture {d} is not resident")
+        e = compare_resident(op, rand_tables(op, 4)[0])
+        note({inst("resident", d): e})
+        log(f"[kernels] entry fixture {d}: K6 == its plain version bit for "
+            f"bit at 1 and 3 steps ({e[1]:.3e} abs), n_long="
+            f"{op._meta.n_long} residue={op._meta.overflow_meta}")
         log(f"[kernels] entry fixture {csr.n_rows}x{csr.n_cols} "
             f"nnz={csr.nnz} {d} streams={list(op._meta.streams)} "
             f"k_used={op._meta.k_used}: " + ", ".join(
@@ -360,8 +446,10 @@ def main():
             size=(csr.n_rows, csr.n_cols),
             check_invariants=False).to(dev), vdt
 
-    ops, xs = {}, {}
-    for counter in (colsum, colsum_multi, outgather):
+    ops, rops, xs = {}, {}, {}
+    counters = (("colsum", colsum), ("colsum_multi", colsum_multi),
+                ("outgather", outgather), ("resident", resident_loop))
+    for _, counter in counters:
         counter.launches = dict.fromkeys(counter.launches, 0)
     for name, csr in suite:
         t = time.perf_counter()
@@ -373,7 +461,8 @@ def main():
         xs[name] = x
         for d in DTYPES:
             t = time.perf_counter()
-            op = dt.SpMVOperator(plan, dtype=d, device=dev)
+            op = dt.SpMVOperator(plan, dtype=d, device=dev,
+                                 force_streamed=True)
             pre = time.perf_counter() - t
             t = time.perf_counter()
             y = op(x)
@@ -400,13 +489,33 @@ def main():
                 f"{cb.KV_SPMM}): worst column err {max(es):.3e} "
                 f"(mass-scaled, limit {E2E_TOL[d]}); first call {run:.3f} s")
             ops[name, d] = op
+            # the resident executor: a default operator's timing loop
+            t = time.perf_counter()
+            rop = dt.SpMVOperator(plan, dtype=d, device=dev)
+            pre = time.perf_counter() - t
+            if not rop.resident:
+                raise AssertionError(f"{name} {d} is not resident")
+            t = time.perf_counter()
+            y_r = rop.perm_out(cb._to_host(
+                rop.timing_loop(CHAIN)(rop._prep_x(x))))
+            run = time.perf_counter() - t
+            e = check(name, f"{d} resident", y_r, golden, scale, d,
+                      (csr.n_rows,))
+            e_s = check(name, f"{d} resident vs streamed", y_r,
+                        y.astype(np.float64), scale, d, (csr.n_rows,))
+            log(f"[e2e] {name} {d} resident timing_loop({CHAIN}) (K6): err "
+                f"{e:.3e}, vs the streamed y {e_s:.3e} (mass-scaled, limit "
+                f"{E2E_TOL[d]}); lower+prepare+upload {pre:.2f} s, first "
+                f"call {run:.3f} s; n_tot={rop._arrays['resident']['n_tot']}"
+                f" incidence entries="
+                f"{rop._arrays['resident']['inc_tot'].numel()}")
+            rops[name, d] = rop
     launches = {}
-    for base, counter in (("colsum", colsum), ("colsum_multi", colsum_multi),
-                          ("outgather", outgather)):
+    for base, counter in counters:
         for d, n in counter.launches.items():
             launches[inst(base, d)] = n
     log(f"[e2e] kernel launches in this phase: {launches}")
-    if set(launches) != set(INSTANCES) or not all(launches.values()):
+    if set(launches) != set(MAIN_PATH) or not all(launches.values()):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     for (name, d), op in ops.items():
         t = time.perf_counter()
@@ -416,6 +525,12 @@ def main():
             f"{k} {s:.3e} scaled ({a:.3e} abs)"
             for k, (s, a) in errs.items())
             + f", limit {KERNEL_TOL[d]}; {time.perf_counter() - t:.2f} s")
+    for (name, d), rop in rops.items():
+        x2d = rop._prep_x(xs[name])
+        e = compare_resident(rop, x2d)
+        note({inst("resident", d): e})
+        log(f"[kernels] {name} {d}: K6 == its plain version bit for bit at "
+            f"1 and 3 steps ({e[1]:.3e} abs)")
 
     # -- 5. timing -----------------------------------------------------------
     # "eager": each step issued from Python as the operator runs it;
@@ -457,6 +572,45 @@ def main():
             if d != "bf16":
                 log(f"[profile] {name} {d} kernel path, eager, per chain of "
                     f"{CHAIN}: " + profile_line(steps["kernel"], 4))
+
+            # K6: one launch per chain, beside the streamed path above
+            rop = rops[name, d]
+            x2d = rop._prep_x(x)
+            kr = {}
+            for n in (CHAIN, LONG_CHAIN):
+                e, g = eager_and_graph(
+                    lambda loop=rop.timing_loop(n), x2d=x2d: loop(x2d),
+                    5 if n == CHAIN else 2)
+                kr[n] = (e / n, g / n)
+            lib = row.get("cusparse graph")
+            log(f"[time] {name} {d} per SpMV, resident K6 (one launch per "
+                f"chain): " + ", ".join(
+                    f"chain {n} eager {kr[n][0] * 1e3:.1f} us / graph "
+                    f"{kr[n][1] * 1e3:.1f} us ({flops / (kr[n][1] * 1e6):.2f}"
+                    f" GFLOP/s)" for n in kr)
+                + f"; streamed kernel path chain {CHAIN} eager "
+                f"{row['kernel eager'] * 1e3:.1f} us / graph "
+                f"{row['kernel graph'] * 1e3:.1f} us; cuSPARSE chain {CHAIN}"
+                f" graph " + (f"{lib * 1e3:.1f} us" if lib else "none (bf16)")
+                + f" [{card}]")
+            step_b, call_b = resident_bytes(rop)
+            t_step = kr[LONG_CHAIN][1]
+            gbs = step_b / (t_step * 1e6)
+            log(f"[time] {inst('resident', d)} alone at {name} shapes: "
+                f"{t_step * 1e3:.1f} us per step (chain {LONG_CHAIN}, graph "
+                f"replay); a step streams {step_b / 1e6:.2f} MB (computed) "
+                f"= {gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate, "
+                f"bound {step_b / copy_gbs / 1e3:.1f} us at the copy rate; "
+                f"a chain-{CHAIN} call must move {call_b / 1e6:.2f} MB, "
+                f"bound {bound(call_b, CHAIN * flops, d)[0] * 1e3:.1f} us at "
+                f"{PEAK_BYTES / 1e12} TB/s [{card}]")
+            if name == "cop20k_like":
+                plain = time_ms(lambda r=rop, x2d=x2d: resident_loop_plain(
+                    r._meta, r._arrays, x2d, CHAIN), 2)
+                alone[inst("resident", d)] = (
+                    kr[CHAIN][1] * CHAIN, plain,
+                    *bound(call_b, CHAIN * flops, d),
+                    lib * CHAIN if lib else None)
 
         # matmat at K_COLS columns: two K5 passes of KV_SPMM against
         # K_COLS single SpMVs and cuSPARSE A @ X, on the same X (no chain)
@@ -509,24 +663,66 @@ def main():
                     "outgather",
                     lambda og=og, n=op._meta.n_y2_rows: outgather(*og, n),
                     lambda og=og: outgather_plain(*og))
+            # the bound reads each input once: the streamed tables and
+            # outputs above, plus the x tables the colsums gather from
+            x_b = op._meta.s_rows * 128 * (8 if d == "f64" else 4)
+            used = int((og[0] != op._meta.n_y2_rows).sum())
+            work = {"colsum": (nbytes["colsum"] + x_b, flops),
+                    "colsum_multi": (nbytes["colsum_multi"]
+                                     + cb.KV_SPMM * x_b, cb.KV_SPMM * flops),
+                    "outgather": (nbytes["outgather"], used * 128)}
             for k, (base, kern, plain) in pairs.items():
                 got = [time_ms(graphed(f), 20 if f is kern else 5)
                        for f in (kern, plain)]
                 gbs = nbytes[base] / (got[0] * 1e6)
+                b_ms, b_by = bound(*work[base], d)
                 log(f"[time] {k} alone at {name} shapes (graph replay): "
                     f"kernel {got[0] * 1e3:.1f} us, plain {got[1] * 1e3:.1f} "
                     f"us; eager: kernel {time_ms(kern, 20) * 1e3:.1f} us; "
                     f"kernel moves {nbytes[base] / 1e6:.2f} MB (computed) = "
-                    f"{gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate "
-                    f"[{card}]")
+                    f"{gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate, "
+                    f"bound {nbytes[base] / copy_gbs / 1e3:.1f} us at the "
+                    f"copy rate; with x read once "
+                    f"{work[base][0] / 1e6:.2f} MB, bound {b_ms * 1e3:.1f} us "
+                    f"({b_by}) at {PEAK_BYTES / 1e12} TB/s [{card}]")
                 if name == "cop20k_like":
-                    alone[k] = got
+                    alone[k] = (*got, b_ms, b_by, None)
         log(f"[time] {name} done in {time.perf_counter() - t:.2f} s")
+
+    # -- T4: the L2 question, on its own launch count ------------------------
+    t = time.perf_counter()
+    t4.resident_probe.launches = {"f32": 0}
+    nv = round(PROBE_MB * 1e6 / (8 * 128 * t4.SLOT_BYTES))
+    args = t4.make_inputs(nv, dev)
+    got = t4.resident_probe(*args, iters=3)
+    e = scaled_err(got, t4.resident_probe_plain(*args))
+    if not torch.equal(got, t4.resident_probe_plain(*args)):
+        raise AssertionError(f"T4 differs from its plain version: {e}")
+    note({"resident_probe": e})
+    plain = time_ms(lambda: t4.resident_probe_plain(*args), 5)
+    probe_b = sum(a.numel() * a.element_size() for a in args) + got.numel() * 4
+    del args, got
+    t4.resident_probe.launches = {"f32": 0}
+    sweep = t4.sweep(dev)
+    launches["resident_probe"] = t4.resident_probe.launches["f32"]
+    for r in sweep:
+        log(f"[probe] T4 {r['mb']:.1f} MB stream (nv={r['nv']}): "
+            f"{r['us_per_sweep']:.2f} us per sweep (chains of "
+            f"{t4.CHAINS[0]} and {t4.CHAINS[1]} differenced) = "
+            f"{r['gbs']:.0f} GB/s, {r['gbs'] / copy_gbs:.1%} of the copy "
+            f"rate [{card}]")
+    row = next(r for r in sweep if round(r["mb"]) == PROBE_MB)
+    alone["resident_probe"] = (
+        row["us_per_sweep"] / 1e3, plain,
+        *bound(probe_b, 2 * nv * 8 * 128, "f32"), None)
+    log(f"[probe] T4 == its plain version bit for bit; launches "
+        f"{launches['resident_probe']}; {time.perf_counter() - t:.2f} s")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",
-         "replaces": f"dasp_tpu/ops/{r}", "launches": launches[k],
-         "max_abs_err": err[k], "ms": alone[k][0], "plain_ms": alone[k][1]}
+         "replaces": r, "launches": launches[k], "max_abs_err": err[k],
+         "ms": alone[k][0], "plain_ms": alone[k][1], "bound_ms": alone[k][2],
+         "bound_by": alone[k][3], "library_ms": alone[k][4]}
         for k, (s, r) in INSTANCES.items()]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

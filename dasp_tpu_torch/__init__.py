@@ -2,16 +2,17 @@
 
 The port runs the same packed plan (``build_wplan``) as the JAX package;
 its device side is PyTorch tensors.  SpMV runs in f32, bf16 and f64
-(native fp64) and SpMM (``matmat``) in all three, through kernels
+(native fp64), SpMM (``matmat``) in all three, and chained SpMVs
+(``timing_loop``) in one launch of the resident executor, through kernels
 hand-written in CUDA C++ for Hopper (``csrc/``: colsum, its fp64 and
-multi-vector instances, outgather), which run as their plain PyTorch
-versions on CPU tensors.  It imports no JAX.
+multi-vector instances, outgather, the resident executor), which run as
+their plain PyTorch versions on CPU tensors.  It imports no JAX.
 
 Quick start::
 
     import dasp_tpu_torch as dt
     csr = dt.load_matrix("matrix.mtx")
-    op = dt.SpMVOperator(csr, dtype="f64", device="cuda")  # f32, bf16, f64
+    op = dt.SpMVOperator(csr, dtype="f64")   # on the card; f32, bf16, f64
     y = op(x)                 # y = A x, in original row order
     Y = op.matmat(X)          # Y = A X, X of shape (n_cols, k)
 """

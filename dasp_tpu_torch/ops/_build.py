@@ -35,11 +35,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C name -> argument types (pointers and the stream as c_void_p, so a
 # 64-bit address is never cut to a 32-bit int)
 _COLSUM = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _COLSUM_MULTI = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _P)
+_RESIDENT = (_P, _I, _L, _L,            # desc, n_streams, nv_total, n_tot
+             _P, _L,                    # fold, n_fold
+             _P, _P, _P, _I, _I,        # inc_ptr, inc_tot, inc_mult,
+                                        # n_long, n_long_rows
+             _P, _P, _I, _I, _I,        # src, perm, B, K, zero row Z
+             _P, _P, _L,                # x, x_scr, x words
+             _P, _P, _P, _P,            # part, y2, tot, out
+             _I, _D, _P)                # iters, tap, stream
+_PROBE = (_P, _P, _P, _P, _L, _I, _P)
 SIGNATURES = {
     # wins, vals, idx, x2d, out, nv, P, stride, stream
     "dasp_colsum_f32": _COLSUM,
@@ -52,6 +63,12 @@ SIGNATURES = {
     # src, perm, y2, out, B, K, zero_row, stream
     "dasp_outgather_f32": _OUTGATHER,
     "dasp_outgather_f64": _OUTGATHER,
+    # K6, one cooperative launch for `iters` chained SpMVs (ops/resident.py)
+    "dasp_resident_f32": _RESIDENT,
+    "dasp_resident_bf16": _RESIDENT,
+    "dasp_resident_f64": _RESIDENT,
+    # T4: vals, idx, x (64,128), out, nv, iters, stream
+    "dasp_resident_probe": _PROBE,
 }
 
 

@@ -13,8 +13,10 @@ The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
   outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
 * ``spmm_fn`` runs one multi-vector colsum launch per stream (K5,
   ``ops/colsum_multi.py``) for kv vectors, then the glue per vector.
-* ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474) on an
-  explicit device: ``__call__``, ``matmat``, ``timing_loop``.
+* ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474), on the
+  CUDA card unless the caller names another device: ``__call__``,
+  ``matmat``, and ``timing_loop``, which runs the resident executor (K6,
+  ``ops/resident.py``) on a resident operator.
 
 Dtypes: f32 runs f32 throughout.  bf16 stores the stream values as bf16
 and runs x, the sums and the glue in f32, rounding y to bf16 at the end
@@ -418,13 +420,18 @@ def arrays_to_device(meta: WMeta, arrays: Dict, device) -> Dict:
     if o is not None:
         n_sums = o["sort_back"].shape[0]        # rsums = sums + one zero
         keep = o["fb_rows"] < meta.n_rows        # .at[].add(mode="drop")
+        # every residue row's sum at its row, for the resident executor
+        # (the streamed path routes them through y2 and fb_rows instead)
+        keep_t = o["tree_rows"] < meta.n_rows
         out["overflow"] = dict(
             cols=_index(o["cols"], meta.s_rows * LANES - 1, dev),
             vals=t(o["vals"]),
             trees=[_index(tr, o["vals"].shape[0], dev) for tr in o["trees"]],
             lane_table=_index(o["lane_table"], n_sums, dev),
             fb_rows=_index(o["fb_rows"][keep], meta.n_rows, dev),
-            fb_pos=_index(o["fb_pos"][keep], n_sums, dev))
+            fb_pos=_index(o["fb_pos"][keep], n_sums, dev),
+            sort_back=_index(o["sort_back"][keep_t], n_sums, dev),
+            tree_rows=_index(o["tree_rows"][keep_t], meta.n_rows, dev))
         n_y2 += o["lane_table"].shape[0] // LANES
     # the kernels index without bounds checks: reject tables that would
     # read outside x2d or y2.  A window must stay inside the S = s_rows
@@ -438,6 +445,11 @@ def arrays_to_device(meta: WMeta, arrays: Dict, device) -> Dict:
         raise ValueError("a window runs outside the x table")
     if meta.res is not None:
         out["res"] = arrays_to_device(meta.res, arrays["res"], dev)
+    out["resident"] = None
+    if arrays.get("resident") is not None:
+        from . import resident
+        out["resident"] = resident.to_device(meta, arrays["resident"],
+                                             out["streams"], dev)
     return out
 
 
@@ -465,6 +477,7 @@ def _tables_from_reference(dtype: str, arrays: Dict) -> Dict:
         return entry
 
     out = dict(arrays, streams=[values(st) for st in arrays["streams"]])
+    out.pop("resident", None)         # the reference's own resident layout
     if arrays["overflow"] is not None:
         out["overflow"] = values(arrays["overflow"])
     if "res" in arrays:
@@ -583,14 +596,20 @@ def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
     rsums = None
     o = arrays["overflow"]
     if o is not None and meta.res is None:
-        xg = x2d.reshape(-1)[o["cols"]]
-        pc = torch.cat([o["vals"] * xg, zero])
-        parts = [pc[t].sum(1) if t.shape[1] > 1 else pc[t[:, 0]]
-                 for t in o["trees"]]
-        rsums = torch.cat(parts + [zero])
+        rsums = residue_sums(o, x2d)
         if o["lane_table"].shape[0]:
             y2_parts.append(rsums[o["lane_table"]].reshape(-1, LANES))
     return torch.cat(y2_parts, 0), rsums
+
+
+def residue_sums(o: Dict, x2d: torch.Tensor) -> torch.Tensor:
+    """The COO residue's per-row sums (the octave trees, concatenated in
+    tree order) and one zero appended, in x2d's dtype."""
+    zero = x2d.new_zeros(1)
+    pc = torch.cat([o["vals"] * x2d.reshape(-1)[o["cols"]], zero])
+    parts = [pc[t].sum(1) if t.shape[1] > 1 else pc[t[:, 0]]
+             for t in o["trees"]]
+    return torch.cat(parts + [zero])
 
 
 def _assemble_y(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor,
@@ -622,14 +641,20 @@ class TorchSpMV:
 
     Built from a CSRMatrix (packed here, with ``config``) or a prebuilt
     WPlan, which serves every dtype (the plan is dtype-independent).  The
-    tables live on ``device`` for the operator's lifetime; ``__call__``
-    and ``matmat`` take and return host arrays in original order, and
-    ``device_call`` maps a device x table to a device y in the plan's
-    (possibly relabeled) row order.  ``config.strict_f64`` changes
-    nothing: the f64 path is native fp64, always strict."""
+    tables live on ``device`` (the CUDA card unless the caller names
+    another) for the operator's lifetime; ``__call__`` and ``matmat`` take
+    and return host arrays in original order, and ``device_call`` maps a
+    device x table to a device y in the plan's (possibly relabeled) row
+    order.  ``timing_loop`` runs the resident executor (K6,
+    ``ops/resident.py``) when ``resident`` is true, which is every plan
+    with a stream unless ``force_streamed``, and the streamed path
+    otherwise.  ``config.strict_f64`` changes nothing: the f64 path is
+    native fp64, always strict."""
 
-    def __init__(self, csr, device, config=None, dtype: str = "f32"):
+    def __init__(self, csr, device="cuda", config=None, dtype: str = "f32",
+                 force_streamed: bool = False):
         from ..config import DEFAULT_CONFIG
+        from . import resident
         t0 = time.perf_counter()
         if dtype not in DTYPES:
             raise ValueError(f"dtype {dtype!r} must be one of {DTYPES}")
@@ -638,6 +663,8 @@ class TorchSpMV:
         self.dtype = dtype
         self.device = torch.device(device)
         self._meta, arrays = plan_to_arrays(self.plan, dtype)
+        if not force_streamed:
+            resident.prepare(self._meta, arrays)
         self._arrays = arrays_to_device(self._meta, arrays, self.device)
         self.preprocess_seconds = time.perf_counter() - t0
 
@@ -652,13 +679,26 @@ class TorchSpMV:
     def device_call(self, x2d: torch.Tensor) -> torch.Tensor:
         return spmv_fn(self._meta, self._arrays, x2d)
 
+    @property
+    def resident(self) -> bool:
+        """True when ``timing_loop`` runs the resident executor (K6)."""
+        return self._arrays["resident"] is not None
+
     def timing_loop(self, iters: int, plain: bool = False):
-        """A callable x2d -> y running ``iters`` chained SpMVs on the
-        device, each adding y[0] * TAP into x (a copy of x2d, in x's
-        dtype: fp64 for f64), then one more SpMV whose y it returns: the
-        streamed branch of PallasSpMV.timing_loop (:1317-1338).  ``plain``
-        runs the kernels' plain versions (the smoke's comparison)."""
+        """A callable x2d -> y running chained SpMVs on the device, as
+        PallasSpMV.timing_loop (:1302-1338) does.  Resident: ``iters``
+        SpMVs in one K6 launch (``resident.resident_loop``), each adding
+        row 0 of its y2 times TAP into every row of x.  Streamed:
+        ``iters`` SpMVs, each adding y[0] * TAP into x (in x's dtype:
+        fp64 for f64), then one more SpMV whose y it returns.  x2d is
+        never written.  ``plain`` runs the kernels' plain versions (the
+        smoke's comparison)."""
         meta, arrays = self._meta, self._arrays
+        if self.resident:
+            from . import resident
+            loop = (resident.resident_loop_plain if plain
+                    else resident.resident_loop)
+            return lambda x2d: loop(meta, arrays, x2d, iters)
 
         def run(x2d: torch.Tensor) -> torch.Tensor:
             x = x2d.clone()

@@ -1,8 +1,9 @@
 """User-facing SpMV operator of the PyTorch port.
 
 ``SpMVOperator`` packs once at construction (host side, ``build_wplan``),
-keeps the lowered tables on an explicit ``device``, and runs the windowed
-kernels on every call, returning y in original row order — the port of
+keeps the lowered tables on a device (the CUDA card unless the caller asks
+for another), and runs the windowed kernels on every call, returning y in
+original row order — the port of
 ``dasp_tpu/spmv.py``'s operator on its windowed (Pallas) path.  The legacy
 tile plan and its XLA executor (``plan.py``, ``ops/xla_backend.py``) are
 not ported: the windowed path runs on CPU tensors too.
@@ -27,17 +28,24 @@ class SpMVOperator(TorchSpMV):
       config: packing tunables (ignored for a prebuilt WPlan);
         ``strict_f64`` is accepted and changes nothing, the f64 path
         being strict fp64 always.
-      device: where the tables live and the kernels run ("cuda", "cpu",
-        a torch.device); CUDA tensors run the hand-written kernels, CPU
-        tensors their plain PyTorch versions.
+      device: where the tables live and the kernels run ("cuda" by
+        default, "cpu", a torch.device); CUDA tensors run the hand-written
+        kernels, CPU tensors their plain PyTorch versions.
+      force_streamed: run ``timing_loop`` on the streamed path even where
+        the plan could run resident (``resident`` is then False), as the
+        reference's ``PallasSpMV(force_streamed=True)``.
     """
 
     def __init__(self, csr, dtype: str = "f32",
-                 config: DaspConfig | None = None, *, device):
-        super().__init__(csr, device, config, dtype)
+                 config: DaspConfig | None = None, *, device="cuda",
+                 force_streamed: bool = False):
+        super().__init__(csr, device, config, dtype, force_streamed)
 
 
 def spmv(csr: CSRMatrix, x, dtype: str = "f32",
-         config: DaspConfig | None = None, *, device):
-    """One-shot convenience wrapper: pack + run once."""
-    return SpMVOperator(csr, dtype, config, device=device)(x)
+         config: DaspConfig | None = None, *, device="cuda"):
+    """One-shot convenience wrapper: pack + run once (one streamed SpMV,
+    so the resident tables, which only ``timing_loop`` reads, are not
+    built)."""
+    return SpMVOperator(csr, dtype, config, device=device,
+                        force_streamed=True)(x)

@@ -255,13 +255,15 @@ def test_strict_f64_changes_nothing():
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 def test_timing_loop_chain(dtype, monkeypatch):
-    """timing_loop(iters) runs iters chained SpMVs, each adding y[0]*TAP
-    into (a copy of) x in x's dtype, then returns one more SpMV's y.  TAP
-    is raised from 1e-36 so that a skipped or misplaced tap shows."""
+    """On the streamed path (force_streamed; the resident one is held in
+    tests/test_torch_resident.py), timing_loop(iters) runs iters chained
+    SpMVs, each adding y[0]*TAP into (a copy of) x in x's dtype, then
+    returns one more SpMV's y.  TAP is raised from 1e-36 so that a skipped
+    or misplaced tap shows."""
     monkeypatch.setattr(cb, "TAP", 0.25)
     rng = np.random.default_rng(0)
     csr = tsp.mixed_categories(300, rng)
-    op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
+    op = dt.SpMVOperator(csr, dtype=dtype, device="cpu", force_streamed=True)
     x2d = op._prep_x(rng.standard_normal(csr.n_cols))
     keep = x2d.clone()
     got = op.timing_loop(3)(x2d)

@@ -339,6 +339,8 @@ torch.set_num_threads(1)
 import dasp_tpu_torch
 from dasp_tpu_torch.sparse import mixed_categories
 from dasp_tpu_torch.ops import colsum, outgather, cuda_backend  # noqa
+from dasp_tpu_torch.ops import resident  # noqa
+from dasp_tpu_torch.probes import resident_probe  # noqa
 from dasp_tpu_torch.bench import suite, fem  # noqa
 rng = np.random.default_rng(0)
 csr = mixed_categories(300, rng)
@@ -347,6 +349,9 @@ x = rng.standard_normal(csr.n_cols)
 golden = csr.spmv(x)
 err = np.abs(op(x) - golden) / np.maximum(np.abs(golden), 1.0)
 assert err.max() <= 2e-5, err.max()
+y = op.perm_out(op.timing_loop(2)(op._prep_x(x)).numpy())
+err = np.abs(y - golden) / np.maximum(np.abs(golden), 1.0)
+assert op.resident and err.max() <= 2e-5, err.max()
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("NO_JAX_OK", float(err.max()))

@@ -1,0 +1,363 @@
+"""The port's resident executor (K6, ``dasp_tpu_torch/ops/resident.py``) on
+the CPU, where ``resident_loop`` runs ``resident_loop_plain``: against the
+port's streamed path, against the JAX package's resident loop
+(``PallasSpMV.timing_loop`` on a resident operator, in interpret mode, as
+tests/test_resident.py runs it) on the same plan, and against the CSR
+golden.  The CUDA kernel itself is held against the plain version on the
+card by ``chip_smoke.py``.
+
+Tolerances, on the error scaled by max(|golden|, 1) per row:
+- f32 1e-5 against the port's streamed path and the reference's resident
+  loop (test_resident_matches_spmv): the same products, sums in another
+  order (the folds, the vreg totals' lane tree, the long scalars, where
+  the reference runs HIGHEST-precision MXU matmuls);
+- bf16 0.1 against the golden (test_resident_bf16's bound), 1e-2 against
+  the reference's resident y: sums that differ only in order, then one
+  rounding to bf16 each, which can land one bf16 step (2^-7 of |y|) apart;
+- f64 1e-10 against the golden: native fp64 sums of at most a few
+  thousand terms (test_torch_dtypes.py); the reference's double-double
+  resident loop is held to its own 2e-6 (test_resident_dd_matches_golden:
+  its long scalars pass an f32 incidence matmul).
+
+Not mirrored: test_split_incidence_cascade and test_resident_dd_split_kernel
+(the port has no f32 incidence matmul to cascade; their fixture, one
+150k-nnz row, runs here in f64 without a cap), and the budget and
+compression tests (test_budget_gate, test_resident_compression_when_over_
+budget, test_resident_output_not_in_vmem_budget, test_uniform_scatter_
+plans_stay_static, test_resident_dd_f32_colsum_tier), which test the
+TPU's VMEM budget and tiers the port does not have.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from dasp_tpu.ops import dd, pallas_backend as pb
+from dasp_tpu.ops import resident as ref_resident
+from dasp_tpu.sparse import CSRMatrix as RefCSR
+import dasp_tpu_torch as dt
+from dasp_tpu_torch import sparse as tsp
+from dasp_tpu_torch.config import DaspConfig
+from dasp_tpu_torch.ops import cuda_backend as cb
+from dasp_tpu_torch.ops import resident
+from dasp_tpu_torch.ops.cuda_backend import TorchSpMV
+from dasp_tpu_torch.probes import resident_probe as t4
+
+torch.set_num_threads(1)
+TOL = {"f32": 1e-5, "f64": 1e-10}
+TOL_BF16_GOLDEN = 0.1
+TOL_BF16_VS_REF = 1e-2
+TOL_REF_DD = 2e-6
+
+# tests/test_resident.py:21-29 and :84-88
+MATCH_CASES = {
+    "mixed": (lambda rng: tsp.mixed_categories(500, rng), 0),
+    "circuit": (lambda rng: tsp.circuit_like(2000, rng), 1),
+    "powerlaw": (lambda rng: tsp.powerlaw_like(1500, 1.8, 700, rng,
+                                               col_alpha=1.8), 2),
+    "fem_long_segments": (lambda rng: tsp.fem_like(6000, 24, rng), 3),
+}
+DD_CASES = {
+    "mixed": (lambda rng: tsp.mixed_categories(500, rng), 10),
+    "circuit": (lambda rng: tsp.circuit_like(2000, rng), 11),
+    "powerlaw": (lambda rng: tsp.powerlaw_like(1500, 1.8, 700, rng,
+                                               col_alpha=1.8), 12),
+}
+
+
+def _ref(csr):
+    return RefCSR(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
+                  csr.values)
+
+
+def _long_row_csr():
+    """tests/test_resident.py:test_resident_dd_split_kernel's fixture: one
+    150k-nnz row over 2000 short ones."""
+    rng = np.random.default_rng(3)
+    lens = rng.integers(1, 6, 2000)
+    lens[0] = 150_000
+    return tsp.random_csr(2000, 2000, lens, rng), rng
+
+
+def _port_loop(op, x, iters):
+    """The port's timing_loop y in original row order, float64."""
+    y = op.timing_loop(iters)(op._prep_x(x))
+    return op.perm_out(y.double().numpy())
+
+
+def _ref_loop(csr, x, dtype, iters):
+    """The reference's resident timing_loop y in original row order."""
+    op = pb.PallasSpMV(_ref(csr), dtype)
+    assert op.resident
+    out = op.timing_loop(iters)(op._prep_x(x))
+    if dtype == "f64":
+        return op.perm_out(dd.to_f64(np.asarray(out["hi"]),
+                                     np.asarray(out["lo"])))
+    return op.perm_out(np.asarray(out).astype(np.float64))
+
+
+def _err(y, want, golden):
+    return float((np.abs(np.asarray(y, np.float64) - want)
+                  / np.maximum(np.abs(golden), 1.0)).max(initial=0.0))
+
+
+@pytest.mark.parametrize("name", list(MATCH_CASES))
+def test_resident_matches_spmv(name):
+    """The port's resident y against its streamed y and the reference's
+    resident y (test_resident_matches_spmv)."""
+    make, seed = MATCH_CASES[name]
+    rng = np.random.default_rng(seed)
+    csr = make(rng)
+    op = dt.SpMVOperator(csr, device="cpu")
+    assert op.resident, "suite-scale plans must be resident"
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    y_res = _port_loop(op, x, 1)
+    assert _err(y_res, op(x), golden) <= TOL["f32"]
+    assert _err(y_res, _ref_loop(csr, x, "f32", 1), golden) <= TOL["f32"]
+    assert _err(y_res, golden, golden) <= 2e-5
+
+
+def test_resident_chained_iters_stay_close():
+    """The 1e-36 tap does not visibly move y over three steps, here and
+    in the reference (test_resident_chained_iters_stay_close)."""
+    rng = np.random.default_rng(3)
+    csr = tsp.mixed_categories(400, rng)
+    op = dt.SpMVOperator(csr, device="cpu")
+    x = rng.standard_normal(csr.n_cols)
+    y1 = _port_loop(op, x, 1)
+    y3 = _port_loop(op, x, 3)
+    assert _err(y3, y1, y1) <= TOL["f32"]
+    assert _err(y3, _ref_loop(csr, x, "f32", 3), y1) <= TOL["f32"]
+
+
+def test_resident_bf16():
+    """test_resident_bf16: bf16 values, f32 sums, y rounded once."""
+    rng = np.random.default_rng(4)
+    csr = tsp.circuit_like(1500, rng)
+    op = dt.SpMVOperator(csr, dtype="bf16", device="cpu")
+    assert op.resident
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    y = op.timing_loop(2)(op._prep_x(x))
+    assert y.dtype == torch.bfloat16
+    y = op.perm_out(y.double().numpy())
+    assert _err(y, golden, golden) < TOL_BF16_GOLDEN
+    assert _err(y, _ref_loop(csr, x, "bf16", 2), golden) <= TOL_BF16_VS_REF
+
+
+@pytest.mark.parametrize("name", list(DD_CASES))
+def test_resident_f64_matches_golden(name):
+    """test_resident_dd_matches_golden: the port's native fp64 resident y
+    at 1e-10, the reference's double-double one at its own 2e-6."""
+    make, seed = DD_CASES[name]
+    rng = np.random.default_rng(seed)
+    csr = make(rng)
+    op = dt.SpMVOperator(csr, dtype="f64", device="cpu")
+    assert op.resident
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    y = op.timing_loop(1)(op._prep_x(x))
+    assert y.dtype == torch.float64
+    assert _err(op.perm_out(y.numpy()), golden, golden) <= TOL["f64"]
+    assert _err(_ref_loop(csr, x, "f64", 1), golden, golden) <= TOL_REF_DD
+
+
+def test_resident_f64_long_row():
+    """One 150k-nnz row over 2000 columns (the fixture of
+    test_resident_dd_split_kernel, whose scalar the reference splits into
+    a cascade once its fan-in cap is lowered to 2): here its scalar sums
+    its vreg totals in fp64, with no cap and no cascade."""
+    csr, rng = _long_row_csr()
+    op = dt.SpMVOperator(csr, dtype="f64", device="cpu")
+    assert op.resident and op._meta.n_long
+    counts = np.diff(op._arrays["resident"]["inc_ptr"].numpy())
+    assert counts.max() > 2, "the scalar must exceed the lowered cap of 2"
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    assert _err(_port_loop(op, x, 1), golden, golden) <= TOL["f64"]
+
+
+@pytest.mark.parametrize("name", ["mixed", "powerlaw", "long_row"])
+def test_incidence_matches_reference_bigs(name):
+    """The port's per-scalar (total, multiplicity) lists, expanded to
+    dense (n_long, NV) matrices per stream, equal the reference's
+    ``resident.prepare`` incidence matrices ``bigs`` with the band trim
+    ``big_c0`` undone."""
+    if name == "long_row":
+        csr, _ = _long_row_csr()
+    else:
+        make, seed = MATCH_CASES[name]
+        csr = make(np.random.default_rng(seed))
+    ref_meta, ref_arrays = pb.plan_to_arrays(pb.build_wplan(_ref(csr)))
+    ref_resident.prepare(ref_meta, ref_arrays)
+    ref = ref_arrays["resident"]
+    meta, arrays = cb.plan_to_arrays(dt.build_wplan(csr))
+    resident.prepare(meta, arrays)
+    res = arrays["resident"]
+    assert meta.n_long and set(ref["bigs"]) == set(res["long_streams"])
+    for s, big in ref["bigs"].items():
+        nv = meta.streams[s][2]
+        want = np.zeros((meta.n_long, nv))
+        c0 = ref["big_c0"].get(s, 0)
+        want[:, c0:c0 + big.shape[1]] = big[:meta.n_long]
+        got = np.zeros((meta.n_long, nv))
+        t0 = res["layout"][s, 5]
+        counts = np.diff(res["inc_ptr"])
+        rows = np.repeat(np.arange(meta.n_long), counts)
+        mine = (res["inc_tot"] >= t0) & (res["inc_tot"] < t0 + nv)
+        got[rows[mine], res["inc_tot"][mine] - t0] = res["inc_mult"][mine]
+        np.testing.assert_array_equal(got, want)
+
+
+def _residue_case(tier, monkeypatch):
+    rng = np.random.default_rng(0)
+    if tier == "scatter":
+        csr = tsp.random_csr(300, 5000, rng.integers(1, 60, 300), rng)
+    elif tier == "route":
+        csr = tsp.random_csr(200, 400_000, np.where(
+            np.arange(200) % 50 == 0, 2000, 3), rng)
+    else:                   # the residue sub-plan (RES_REPACK_MIN = 1)
+        monkeypatch.setattr(cb, "RES_REPACK_MIN", 1)
+        n = 40_000
+        csr = tsp.random_csr(n, n, rng.integers(1, 8, size=n), rng)
+    return csr, rng
+
+
+@pytest.mark.parametrize("tier", ["scatter", "route", "subplan"])
+def test_residue_post_loop_correction(tier, monkeypatch):
+    """Every residue row goes through the post-loop correction, whatever
+    tier the streamed path routes it by (sorted scatter, y2 lane-table
+    route, or sub-plan): the resident y matches the golden, and without
+    the correction it would not."""
+    csr, rng = _residue_case(tier, monkeypatch)
+    op = dt.SpMVOperator(csr, dtype="f32", config=DaspConfig(relabel="off"),
+                         device="cpu")
+    meta = op._meta
+    assert op.resident and op._arrays["overflow"] is not None
+    assert (meta.res is not None) == (tier == "subplan")
+    if tier != "subplan":
+        assert meta.overflow_meta == (tier,)
+    x = rng.standard_normal(csr.n_cols)
+    golden = csr.spmv(x)
+    x2d = op._prep_x(x)
+    y = op.timing_loop(1)(x2d)
+    assert _err(op.perm_out(y.numpy()), golden, golden) <= 2e-5
+    assert _err(op.perm_out(y.numpy()), op(x), golden) <= TOL["f32"]
+    o = op._arrays["overflow"]
+    corr = torch.zeros_like(y).index_add(
+        0, o["tree_rows"], cb.residue_sums(o, x2d)[o["sort_back"]])
+    assert float(corr.abs().max()) > 0.1
+    assert _err(op.perm_out((y - corr).numpy()), golden, golden) > 1e-3
+
+
+def test_resident_tap_and_residue_from_caller_x(monkeypatch):
+    """With TAP raised so that it shows: each step adds row 0 of its y2,
+    times TAP, into every row of x; y is the last step's outgather plus
+    the residue of the caller's x (not the tapped one); x2d is never
+    written.  Rebuilt here from the streamed path's own pieces."""
+    monkeypatch.setattr(cb, "TAP", 0.25)
+    rng = np.random.default_rng(0)
+    csr = tsp.random_csr(300, 5000, rng.integers(1, 60, 300), rng)
+    op = dt.SpMVOperator(csr, config=DaspConfig(relabel="off"), device="cpu")
+    meta, arrays = op._meta, op._arrays
+    assert arrays["overflow"] is not None
+    x2d = op._prep_x(rng.standard_normal(csr.n_cols))
+    keep = x2d.clone()
+    got = op.timing_loop(3)(x2d)
+    assert torch.equal(x2d, keep), "timing_loop must not write its input"
+    no_res = dict(arrays, overflow=None)
+    x = x2d.clone()
+    for _ in range(3):
+        parts = [cb.colsum_plain(st["wins"], st["vals"], st["idx"], x, s)
+                 for (_, s, _), st in zip(meta.streams, arrays["streams"])]
+        y2, _ = cb.stack_y2(meta, no_res, parts, x)
+        out = cb.outgather_plain(arrays["out_src"], arrays["out_perm"], y2)
+        x = x + y2[0] * 0.25
+    want = out.reshape(-1)[:meta.n_rows]
+    o = arrays["overflow"]
+    want = want.index_add(0, o["tree_rows"],
+                          cb.residue_sums(o, x2d)[o["sort_back"]])
+    scale = want.abs().clamp(min=1.0)
+    assert float(((got - want).abs() / scale).max()) <= TOL["f32"]
+    assert float(((op.timing_loop(1)(x2d) - got).abs() / scale).max()) > 1e-2
+
+
+def test_force_streamed_and_empty():
+    """force_streamed=True keeps the operator off the resident path; the
+    empty matrix is never resident (the reference fails there) and its
+    timing loop returns zeros."""
+    rng = np.random.default_rng(0)
+    csr = tsp.mixed_categories(300, rng)
+    assert dt.SpMVOperator(csr, device="cpu").resident
+    op = dt.SpMVOperator(csr, device="cpu", force_streamed=True)
+    assert not op.resident and op._arrays["resident"] is None
+    x2d = op._prep_x(rng.standard_normal(csr.n_cols))
+    assert torch.equal(op.timing_loop(0)(x2d), op.device_call(x2d))
+    empty = tsp.random_csr(50, 50, np.zeros(50, np.int64), rng)
+    for dtype in ("f32", "bf16", "f64"):
+        op = dt.SpMVOperator(empty, dtype=dtype, device="cpu")
+        assert not op.resident
+        y = op.timing_loop(2)(op._prep_x(np.ones(50)))
+        assert y.shape == (50,) and not y.any()
+    with pytest.raises(ValueError, match="no resident tables"):
+        resident.resident_loop(op._meta, op._arrays, op._prep_x(np.ones(50)),
+                               1)
+
+
+def test_resident_loop_refuses_bad_calls():
+    """Wrong device, dtype, shape or iteration count raises; a CPU tensor
+    runs the plain version (and counts no launch)."""
+    rng = np.random.default_rng(0)
+    csr = tsp.mixed_categories(300, rng)
+    op = dt.SpMVOperator(csr, device="cpu")
+    meta, arrays = op._meta, op._arrays
+    x2d = op._prep_x(rng.standard_normal(csr.n_cols))
+    before = dict(resident.resident_loop.launches)
+    assert torch.equal(resident.resident_loop(meta, arrays, x2d, 2),
+                       resident.resident_loop_plain(meta, arrays, x2d, 2))
+    assert resident.resident_loop.launches == before
+    for bad, iters, what in ((x2d.double(), 1, "x must be"),
+                             (x2d[:-1], 1, "x must be"),
+                             (x2d, 0, "iters"),
+                             (x2d.to("meta"), 1, "unsupported device")):
+        with pytest.raises(ValueError, match=what):
+            resident.resident_loop(meta, arrays, bad, iters)
+
+
+def test_entry_points_default_to_cuda():
+    """SpMVOperator, spmv and TorchSpMV run on the card unless the caller
+    asks for the CPU (read from the signatures, no card needed)."""
+    for fn in (dt.SpMVOperator.__init__, dt.spmv, TorchSpMV.__init__):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn
+
+
+def test_probe_plain_matches_numpy():
+    """T4's plain version against a numpy reading of the body of
+    tools/resident_probe.py:make (:28-44); sums of 8 products in another
+    order, so 1e-6 of max(|ref|, 1)."""
+    nv = 48
+    rng = np.random.default_rng(0)
+    vals = rng.standard_normal((nv * 8, 128)).astype(np.float32)
+    idx = rng.integers(0, 1024, (nv * 8, 128)).astype(np.int16)
+    x2d = rng.standard_normal((64, 128)).astype(np.float32)
+    want = []
+    for v in range(nv):
+        val = vals[v * 8:(v + 1) * 8]
+        ix = idx[v * 8:(v + 1) * 8].astype(np.int32)
+        lam = ix & 127
+        q = (ix >> 7) & 7
+        g = np.take_along_axis(x2d[0:8], q, axis=0)
+        g = np.take_along_axis(g, lam, axis=1)
+        want.append((val * g).sum(axis=0))
+    want = np.stack(want)
+    got = t4.resident_probe(torch.from_numpy(vals), torch.from_numpy(idx),
+                            torch.from_numpy(x2d), iters=3)
+    assert got.shape == (nv, 128) and got.dtype == torch.float32
+    assert _err(got.numpy(), want, want) <= 1e-6
+    with pytest.raises(ValueError, match="x must be"):
+        t4.resident_probe(torch.from_numpy(vals), torch.from_numpy(idx),
+                          torch.from_numpy(x2d[:8]))
