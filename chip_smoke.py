@@ -7,7 +7,8 @@ Phases, one or more printed lines each, every one raising on failure:
      and the device-memory copy rate (the roofline for the kernels);
   2. build: compiles the CUDA kernels (colsum K1 and its fp64 instance
      K3, outgather K2 and its fp64 instance K4, the multi-vector colsum
-     K5, the resident executor K6 and the L2 probe T4) from
+     K5, the resident executor K6, the L2 probe T4, and the probes T1
+     (gather_probe.cu), T2 and T3 (colsum_probe.cu)) from
      dasp_tpu_torch/csrc with nvcc into one library in
      dasp_tpu_torch/_build, and the packer's native host library
      (native/, make);
@@ -39,7 +40,15 @@ Phases, one or more printed lines each, every one raising on failure:
      f64; every kernel instance alone beside its plain version, with the
      bytes it must move and its bound; a torch.profiler breakdown of the
      f32 and f64 streamed kernel paths; and the T4 sweep (the rate of a
-     chained re-read of a 6-192 MB stream against the copy rate).
+     chained re-read of a 6-192 MB stream against the copy rate);
+  6. the probes T1 (gather_bench: copy, shared-memory and L2 gathers),
+     T2 (roundcost_ab: cur/flane/fboth at P = 1..32) and T3
+     (stream_bench2: ladder A-F), at the tools' sizes: every variant
+     against its plain version bit for bit, and the variants that compute
+     K1's function against K1 on the card bit for bit; then each sweep,
+     graph replays of the kernel alone and of the tools' chained step, at
+     the tools' sizes and at 8x, with the bytes, the share of the copy
+     rate and the bound, on the probes' own launch counts.
 It then prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -91,11 +100,16 @@ INSTANCES = {
     "resident_bf16": ("resident.cu", f"{OPS}/resident.py:452"),
     "resident_f64": ("resident.cu", f"{OPS}/resident.py:452"),
     "resident_probe": ("resident_probe.cu", "tools/resident_probe.py:27"),
+    "gather_bench": ("gather_probe.cu", "tools/gather_bench.py:46"),
+    "roundcost_ab": ("colsum_probe.cu", "tools/roundcost_ab.py:40"),
+    "stream_bench2": ("colsum_probe.cu", "tools/stream_bench2.py:39"),
 }
-# T4 is a probe, not on the SpMV path: its launches are counted over its
-# own sweep (phase 5), every other instance's over phase 4
-MAIN_PATH = tuple(k for k in INSTANCES if k != "resident_probe")
+# T1-T4 are probes, not on the SpMV path: their launches are counted over
+# their own sweeps (phase 6), every other instance's over phase 4
+PROBES = ("resident_probe", "gather_bench", "roundcost_ab", "stream_bench2")
+MAIN_PATH = tuple(k for k in INSTANCES if k not in PROBES)
 PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
+PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
 
 
 def log(msg):
@@ -301,6 +315,54 @@ def compare_resident(op, x2d, steps=(1, 3)):
     return worst
 
 
+def compare_probes(dev):
+    """T1-T3 at the tools' sizes: every variant against its plain version
+    on the same card tensors, and the T2/T3 variants that compute K1's
+    function (T2 flane at any P, every T2 variant at P = 1, T3 B at
+    stride 8 and C at stride 2) against K1 itself, all bit for bit.
+    Returns {instance: (scaled, abs) worst error against the plain
+    versions}."""
+    import torch
+    from dasp_tpu_torch.ops.colsum import colsum
+    from dasp_tpu_torch.probes import gather_bench as t1, \
+        roundcost_ab as t2, stream_bench2 as t3
+
+    def same(name, what, got, want):
+        e = scaled_err(got, want)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name} {what} differs: {e} (scaled, abs)")
+        return e
+
+    err = {}
+    inp = t1.make_inputs(t1.ROWS, dev)
+    err["gather_bench"] = max(
+        same("T1", body, t1.gather_probe(inp[body], inp["xw"], body),
+             t1.gather_probe_plain(inp[body], inp["xw"], body))
+        for body in t1.BODIES)
+    del inp
+    worst = []
+    for P in t2.PS:
+        args = t2.make_inputs(P, t2.NV, dev)
+        for variant in t2.VARIANTS:
+            got = t2.roundcost_probe(*args, variant)
+            worst.append(same("T2", f"{variant} P={P}", got,
+                              t2.roundcost_probe_plain(*args, variant)))
+            if P == 1 or variant == "flane":
+                same("T2 vs K1", f"{variant} P={P}", got, colsum(*args, 8))
+    err["roundcost_ab"] = max(worst)
+    vals, x2d, steps = t3.make_inputs(t3.NV, dev)
+    worst = []
+    for tag, variant, P, stride, _ in t3.LADDER:
+        wins, idx = steps[tag[0]]
+        got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
+        worst.append(same("T3", tag, got, t3.stream_probe_plain(
+            wins, vals, idx, x2d, variant, stride)))
+        if tag[0] in "BC":
+            same("T3 vs K1", tag, got, colsum(wins, vals, idx, x2d, stride))
+    err["stream_bench2"] = max(worst)
+    return err
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -323,7 +385,8 @@ def main():
     from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
     from dasp_tpu_torch.ops.resident import resident_loop, \
         resident_loop_plain
-    from dasp_tpu_torch.probes import resident_probe as t4
+    from dasp_tpu_torch.probes import gather_bench as t1, \
+        roundcost_ab as t2, resident_probe as t4, stream_bench2 as t3
     from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories
 
     smi = subprocess.run(
@@ -717,6 +780,71 @@ def main():
         *bound(probe_b, 2 * nv * 8 * 128, "f32"), None)
     log(f"[probe] T4 == its plain version bit for bit; launches "
         f"{launches['resident_probe']}; {time.perf_counter() - t:.2f} s")
+
+    # -- 6. T1-T3: the colsum's costs, on their own launch counts ------------
+    t = time.perf_counter()
+    for k, e in compare_probes(dev).items():
+        note({k: e})
+    log(f"[probe] T1 (3 bodies), T2 (3 variants at P = {list(t2.PS)}) and "
+        f"T3 (ladder A-F) == their plain versions bit for bit at the tools' "
+        f"sizes; T2 flane, T2 P=1, T3 B and C == K1 on the card bit for "
+        f"bit; {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    wrappers = {"gather_bench": t1.gather_probe,
+                "roundcost_ab": t2.roundcost_probe,
+                "stream_bench2": t3.stream_probe}
+    for w in wrappers.values():
+        w.launches = {"f32": 0}
+    sweeps = {}
+    for scale in PROBE_SCALES:
+        sweeps["gather_bench", scale] = [
+            (r["body"], r) for r in t1.sweep(dev, t1.ROWS * scale)]
+        sweeps["roundcost_ab", scale] = [
+            (f"{r['variant']} P={r['P']}", r)
+            for r in t2.sweep(dev, t2.NV * scale)]
+        sweeps["stream_bench2", scale] = [
+            (r["tag"], r) for r in t3.sweep(dev, t3.NV * scale)]
+    for k, w in wrappers.items():
+        launches[k] = w.launches["f32"]
+    tool = {"gather_bench": "T1", "roundcost_ab": "T2",
+            "stream_bench2": "T3"}
+    for (k, scale), rows in sweeps.items():
+        for label, r in rows:
+            gbs = r["bytes"] / (r["ms"] * 1e6)
+            b_ms, b_by = bound(r["move_bytes"], r["flops"], "f32")
+            size = (f"rows={r['rows']}" if k == "gather_bench"
+                    else f"NV={r['nv']}")
+            lib = (f", torch.gather {r['library_ms'] * 1e3:.2f} us"
+                   if r.get("library_ms") is not None else "")
+            log(f"[probe] {tool[k]} {label} {size} ({scale}x the tool's): "
+                f"alone {r['ms'] * 1e3:.2f} us, chained step "
+                f"{r['chained_ms'] * 1e3:.2f} us (graph replays){lib}; the "
+                f"tool's bytes {r['bytes'] / 1e6:.2f} MB = {gbs:.0f} GB/s, "
+                f"{gbs / copy_gbs:.1%} of the copy rate; must move "
+                f"{r['move_bytes'] / 1e6:.2f} MB, bound {b_ms * 1e3:.2f} us "
+                f"({b_by}) at {PEAK_BYTES / 1e12} TB/s [{card}]")
+    # the kernels line's rows: one named variant each, at the tool's size
+    reps = {"gather_bench": "sublane", "roundcost_ab": "cur P=32",
+            "stream_bench2": "D P4"}
+    inp = t1.make_inputs(t1.ROWS, dev)
+    a2 = t2.make_inputs(32, t2.NV, dev)
+    vals, x2d, steps = t3.make_inputs(t3.NV, dev)
+    plains = {
+        "gather_bench": lambda: t1.gather_probe_plain(
+            inp["sublane"], inp["xw"], "sublane"),
+        "roundcost_ab": lambda: t2.roundcost_probe_plain(*a2, "cur"),
+        "stream_bench2": lambda: t3.stream_probe_plain(
+            steps["D"][0], vals, steps["D"][1], x2d, "B"),
+    }
+    for k, plain in plains.items():
+        r = dict(sweeps[k, 1])[reps[k]]
+        alone[k] = (r["ms"], time_ms(graphed(plain), 5),
+                    *bound(r["move_bytes"], r["flops"], "f32"),
+                    r.get("library_ms"))
+    del inp, a2, vals, x2d, steps
+    log(f"[probe] T1-T3 sweeps: launches " + ", ".join(
+        f"{k} {launches[k]}" for k in wrappers)
+        + f"; {time.perf_counter() - t:.2f} s")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",

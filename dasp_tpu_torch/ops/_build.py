@@ -51,6 +51,9 @@ _RESIDENT = (_P, _I, _L, _L,            # desc, n_streams, nv_total, n_tot
              _P, _P, _P, _P,            # part, y2, tot, out
              _I, _D, _P)                # iters, tap, stream
 _PROBE = (_P, _P, _P, _P, _L, _I, _P)
+_ROUNDCOST = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
+_STREAM = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_GATHER = (_P, _P, _P, _I, _I, _P)
 SIGNATURES = {
     # wins, vals, idx, x2d, out, nv, P, stride, stream
     "dasp_colsum_f32": _COLSUM,
@@ -69,6 +72,12 @@ SIGNATURES = {
     "dasp_resident_f64": _RESIDENT,
     # T4: vals, idx, x (64,128), out, nv, iters, stream
     "dasp_resident_probe": _PROBE,
+    # T1: idx, xw (2048,128), out, rows, body, stream
+    "dasp_gather_probe": _GATHER,
+    # T2: wins, vals, idx, x2d, out, nv, P, variant, stream
+    "dasp_roundcost_probe": _ROUNDCOST,
+    # T3: wins, vals, idx, x2d, out, nv, P, variant, stride, stream
+    "dasp_stream_probe": _STREAM,
 }
 
 

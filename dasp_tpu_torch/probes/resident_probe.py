@@ -26,6 +26,7 @@ import torch
 
 from ..wplan import SUB, LANES
 from ..ops import _build
+from ._common import check_args, require_cuda
 
 X_ROWS = 64                        # rows of the fixed x table (:54)
 SIZES_MB = (6, 12, 24, 48, 96, 192)
@@ -54,26 +55,15 @@ def resident_probe(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
     """The probe kernel on CUDA tensors (``iters`` sweeps, one launch),
     ``resident_probe_plain`` on CPU tensors (every sweep gives the same
     out)."""
-    dev = vals.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"resident_probe: unsupported device {dev}")
     nv = vals.shape[0] // SUB
-    for name, t, dt, shape in (("vals", vals, torch.float32, (nv * SUB, LANES)),
-                               ("idx", idx, torch.int16, (nv * SUB, LANES)),
-                               ("x", x, torch.float32, (X_ROWS, LANES))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"resident_probe: {name} must be a contiguous {dt} {shape} "
-                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+    dev = check_args("resident_probe", (
+        ("vals", vals, torch.float32, (nv * SUB, LANES)),
+        ("idx", idx, torch.int16, (nv * SUB, LANES)),
+        ("x", x, torch.float32, (X_ROWS, LANES))))
     if nv < 1 or not isinstance(iters, int) or iters < 1:
         raise ValueError(f"resident_probe: nv {nv} / iters {iters!r}")
     if dev.type == "cpu":
         return resident_probe_plain(vals, idx, x)
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"resident_probe: {dev} is not the current CUDA "
-                         "device (use torch.cuda.device(...))")
     out = torch.empty((nv, LANES), dtype=torch.float32, device=dev)
     rc = _build.library().dasp_resident_probe(
         vals.data_ptr(), idx.data_ptr(), x.data_ptr(), out.data_ptr(), nv,
@@ -132,10 +122,8 @@ def sweep(device, sizes_mb=SIZES_MB, chains=CHAINS, trials: int = 5,
 
 
 def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("resident_probe: needs a CUDA card")
-    dev = torch.device("cuda", 0)
-    print(torch.cuda.get_device_name(0), flush=True)
+    dev = require_cuda("resident_probe")
+    print(torch.cuda.get_device_name(dev), flush=True)
     for r in sweep(dev):
         print(f"nv={r['nv']:6d} ({r['mb']:6.1f} MB): "
               f"{r['us_per_sweep']:8.2f} us/sweep "

@@ -1,0 +1,234 @@
+"""The port's T1 (gather_bench) and T3 (stream_bench2) probes against the
+tools' own Pallas kernels, and the checks every probe wrapper makes.
+
+On the CPU the wrappers run their plain PyTorch versions; the tools'
+kernels run in interpret mode (``force_tpu_interpret_mode``).  The tools
+run their sweeps when imported (stream_bench2) or keep their kernel bodies
+inside ``main`` (gather_bench), so the kernels, bodies and input draws are
+taken out of the sources with ``ast`` and run with the tools' constants;
+UNROLL is lowered to 8, which changes only the unroll.  The CUDA kernels
+are held against the plain versions on the card by ``chip_smoke.py``.
+
+Tolerance: 2e-6 on the error scaled by max(|ref|, 1).  Both sides multiply
+the same f32 words; JAX's order of the sublane sum is not fixed.  Against
+K1's plain version (``colsum_plain``) the probes' plain versions agree bit
+for bit where they compute K1's function.
+"""
+
+import ast
+import importlib.util
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from dasp_tpu_torch.ops.colsum import colsum_plain
+from dasp_tpu_torch.probes import gather_bench as t1
+from dasp_tpu_torch.probes import resident_probe as t4
+from dasp_tpu_torch.probes import roundcost_ab as t2
+from dasp_tpu_torch.probes import stream_bench2 as t3
+from tools import gather_bench as tool_t1
+
+torch.set_num_threads(1)
+TOL = 2e-6
+NV = 128                    # one TPU grid step of BV = 128 vregs
+T3_SRC = importlib.util.find_spec("tools.stream_bench2").origin
+
+
+def _scaled_err(ours, ref):
+    ref = np.asarray(ref, dtype=np.float64)
+    ours = np.asarray(ours, dtype=np.float64)
+    return float((np.abs(ours - ref) / np.maximum(np.abs(ref), 1.0)).max())
+
+
+def _tree(path):
+    with open(path) as fh:
+        return ast.parse(fh.read(), path)
+
+
+def _function(tree, name):
+    return next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def _exec(nodes, path, **names):
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, np=np, **names)
+    exec(compile(ast.fix_missing_locations(ast.Module(nodes, [])), path,
+                 "exec"), ns)
+    return ns
+
+
+@pytest.mark.parametrize("body", t1.BODIES)
+def test_gather_plain_matches_tool(body):
+    """T1's plain version against the tool's pallas_stream_op on the
+    bodies of its main (:76, :81-82, :87-88), at R = 2048."""
+    main = _function(_tree(tool_t1.__file__), "main")
+    calls = sorted((n for n in ast.walk(main) if isinstance(n, ast.Call)
+                    and getattr(n.func, "id", "") == "pallas_stream_op"),
+                   key=lambda n: n.lineno)
+    assert len(calls) == len(t1.BODIES)
+    fn = eval(ast.unparse(calls[t1.BODIES.index(body)].args[0]),
+              {"jnp": jnp})
+    inp = t1.make_inputs(rows=t1.B)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(tool_t1.pallas_stream_op(fn)(
+            inp[body].numpy(), inp["xw"].numpy()))
+    got = t1.gather_probe(inp[body], inp["xw"], body)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _scaled_err(got.numpy(), ref) <= TOL
+
+
+def test_gather_make_inputs_are_the_tools(monkeypatch):
+    """make_inputs draws what the tool's main("all") feeds its kernels
+    (its timing replaced by a recorder), and xla_take is its flat take."""
+    seen = []
+    monkeypatch.setattr(tool_t1, "timed_loop", lambda op, idx, xw: seen.append(
+        (np.asarray(idx), np.asarray(xw))) or 1.0)
+    monkeypatch.setattr(tool_t1, "report", lambda *a: None)
+    tool_t1.main("all")
+    inp = t1.make_inputs()
+    assert len(seen) == len(t1.WHICH)
+    for body, (idx, xw) in zip(t1.WHICH, seen):
+        assert np.array_equal(inp[body].numpy(), idx), body
+        assert np.array_equal(inp["xw"].numpy(), xw)
+    idx = inp["xla_take"][:64]
+    assert torch.equal(t1.xla_take(idx.long(), inp["xw"]),
+                       torch.from_numpy(np.array(jnp.take(
+                           jnp.asarray(xw).ravel(), idx.numpy(),
+                           mode="clip"))))
+
+
+def _tool_t3_make():
+    return _exec([_function(_tree(T3_SRC), "make")], T3_SRC, LANES=128,
+                 SUB=8, NV=NV, BV=128, UNROLL=8, S=t3.S)["make"]
+
+
+@pytest.mark.parametrize("step", [tag for tag, *_ in t3.LADDER])
+def test_stream_plain_matches_tool(step):
+    """T3's plain version against the tool's make(variant, P, stride) in
+    interpret mode, every ladder step, at NV = 128."""
+    _, variant, P, stride, _ = next(s for s in t3.LADDER if s[0] == step)
+    vals, x2d, steps = t3.make_inputs(NV)
+    wins, idx = steps[step[0]]
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(_tool_t3_make()(variant, P, stride)(
+            wins.numpy(), vals.numpy(), idx.numpy(), x2d.numpy()))
+    got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
+    assert got.shape == ref.shape == (NV * 8 // stride, 128)
+    assert _scaled_err(got.numpy(), ref) <= TOL
+
+
+def test_stream_make_inputs_are_the_tools():
+    """make_inputs draws what the tool's module level (:33-36) and its run
+    calls (:139-144, in order, cut before the kernel) draw, and LADDER is
+    those calls."""
+    tree = _tree(T3_SRC)
+    keep = {"LANES", "SUB", "NV", "BV", "UNROLL", "S", "rng", "vals", "idxh",
+            "x2d"}
+    head = [n for n in tree.body if isinstance(n, ast.Assign)
+            and {m.id for t in n.targets for m in ast.walk(t)
+                 if isinstance(m, ast.Name)} <= keep]
+    run = _function(tree, "run")
+    cut = next(i for i, s in enumerate(run.body)
+               if "make(" in ast.unparse(s))
+    run.body = run.body[:cut] + ast.parse("return idx, wins").body
+    ns = _exec(head + [run], T3_SRC)
+    calls = [n.value for n in tree.body if isinstance(n, ast.Expr)
+             and isinstance(n.value, ast.Call)
+             and getattr(n.value.func, "id", "") == "run"]
+    vals, x2d, steps = t3.make_inputs()
+    assert np.array_equal(vals.numpy(), np.asarray(ns["vals"]))
+    assert np.array_equal(x2d.numpy(), np.asarray(ns["x2d"]))
+    assert len(calls) == len(t3.LADDER)
+    for call, (tag, variant, P, stride, same_win) in zip(calls, t3.LADDER):
+        kw = {k.arg: ast.literal_eval(k.value) for k in call.keywords}
+        assert [ast.literal_eval(a) for a in call.args] == [tag, variant]
+        assert (kw.get("P", 1), kw.get("stride", 8),
+                kw.get("same_win", False)) == (P, stride, same_win)
+        idx, wins = eval(compile(ast.Expression(call), T3_SRC, "eval"), ns)
+        assert np.array_equal(steps[tag[0]][1].numpy(), np.asarray(idx)), tag
+        assert np.array_equal(steps[tag[0]][0].numpy(), wins), tag
+
+
+def test_probes_equal_k1_where_they_compute_it():
+    """T2 flane at any P, T2 at P = 1 and T3 B equal K1's plain version at
+    stride 8, and T3 C equals it at stride 2, bit for bit."""
+    for P in (1, 4, 8, 32):
+        wins, vals, idx, x2d = t2.make_inputs(P, NV)
+        k1 = colsum_plain(wins, vals, idx, x2d, 8)
+        for variant in (t2.VARIANTS if P == 1 else ("flane",)):
+            assert torch.equal(
+                t2.roundcost_probe(wins, vals, idx, x2d, variant), k1), \
+                (P, variant)
+        if P > 1:       # the tag at the slot is another function
+            assert not torch.equal(
+                t2.roundcost_probe(wins, vals, idx, x2d, "cur"), k1)
+    vals, x2d, steps = t3.make_inputs(NV)
+    for step, stride in (("B", 8), ("C", 2)):
+        wins, idx = steps[step]
+        assert torch.equal(t3.stream_probe(wins, vals, idx, x2d, "B", stride),
+                           colsum_plain(wins, vals, idx, x2d, stride)), step
+
+
+def test_probe_wrappers_refuse_bad_calls():
+    """Wrong dtype, shape, variant or device raises; a CPU tensor runs the
+    plain version and counts no launch."""
+    inp = t1.make_inputs(rows=t1.B)
+    idx, xw = inp["sublane"], inp["xw"]
+    wins, vals, ridx, x2d = t2.make_inputs(4, 8)
+    svals, sx2d, steps = t3.make_inputs(8)
+    swins, sidx = steps["D"]
+    before = [dict(f.launches) for f in (t1.gather_probe, t2.roundcost_probe,
+                                         t3.stream_probe)]
+    assert torch.equal(t1.gather_probe(idx, xw, "sublane"),
+                       t1.gather_probe_plain(idx, xw, "sublane"))
+    assert torch.equal(t2.roundcost_probe(wins, vals, ridx, x2d, "fboth"),
+                       t2.roundcost_probe_plain(wins, vals, ridx, x2d,
+                                                "fboth"))
+    assert torch.equal(t3.stream_probe(swins, svals, sidx, sx2d, "B"),
+                       t3.stream_probe_plain(swins, svals, sidx, sx2d, "B"))
+    assert before == [dict(f.launches) for f in (
+        t1.gather_probe, t2.roundcost_probe, t3.stream_probe)]
+    bad = [
+        (lambda: t1.gather_probe(idx.long(), xw, "lane"), "idx must be"),
+        (lambda: t1.gather_probe(idx[:100], xw, "lane"), "multiple"),
+        (lambda: t1.gather_probe(idx, xw[:64], "lane"), "xw must be"),
+        (lambda: t1.gather_probe(idx, xw, "row"), "body"),
+        (lambda: t1.gather_probe(idx.to("meta"), xw.to("meta"), "lane"),
+         "unsupported device"),
+        (lambda: t2.roundcost_probe(wins, vals.double(), ridx, x2d, "cur"),
+         "vals must be"),
+        (lambda: t2.roundcost_probe(wins, vals, ridx.int(), x2d, "cur"),
+         "idx must be"),
+        (lambda: t2.roundcost_probe(wins[:4], vals, ridx, x2d, "cur"),
+         "vals must be"),
+        (lambda: t2.roundcost_probe(wins, vals, ridx, x2d, "both"),
+         "variant"),
+        (lambda: t2.roundcost_probe(wins.to("meta"), vals.to("meta"),
+                                    ridx.to("meta"), x2d.to("meta"), "cur"),
+         "unsupported device"),
+        (lambda: t2.make_inputs(33, 8), "P 33"),
+        (lambda: t3.stream_probe(swins, svals, sidx, sx2d[:, :64], "B"),
+         "x2d must be"),
+        (lambda: t3.stream_probe(swins, svals, sidx, sx2d, "B", 3),
+         "stride 3"),
+        (lambda: t3.stream_probe(swins, svals, sidx, sx2d, "C"), "variant"),
+        (lambda: t3.stream_probe(swins, svals, sidx[:8], sx2d, "B"),
+         "idx must be"),
+    ]
+    for call, what in bad:
+        with pytest.raises(ValueError, match=what):
+            call()
+
+
+def test_probe_entry_points_need_a_card(monkeypatch):
+    """The probes' CLIs refuse to run without a CUDA card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (lambda: t1.main([]), lambda: t2.main(["8"]),
+                 lambda: t3.main(["8"]), t4.main):
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            main()
