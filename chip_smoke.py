@@ -35,12 +35,17 @@ Phases, one or more printed lines each, every one raising on failure:
      f64 and bf16 on the kernel path, the same path with the plain
      versions, and cuSPARSE (torch.sparse_csr_tensor @ x, first held to
      the golden; f32 and f64); K6 at chains of 10 and 100 beside them,
-     and alone with the bytes a step moves; matmat at 8 columns (two K5
-     passes of 4) against 8 single SpMVs and cuSPARSE A @ X, in f32 and
-     f64; every kernel instance alone beside its plain version, with the
-     bytes it must move and its bound; a torch.profiler breakdown of the
-     f32 and f64 streamed kernel paths; and the T4 sweep (the rate of a
-     chained re-read of a 6-192 MB stream against the copy rate);
+     and alone with the bytes a step moves; K6's phase clock over one
+     chain of 100 (a [phase] line per arm and dtype: phases A, C and
+     D+tap per step, their sum against the graphed step, the grid
+     barriers a step, the grid and blocks per SM); matmat at 8 columns
+     (two K5 passes of 4) against 8 single SpMVs and cuSPARSE A @ X, in
+     f32 and f64; every kernel instance alone (ALONE_REPS launches
+     captured in one graph, so that the host's replay cost does not
+     show) beside its plain version, with the bytes it must move and its
+     bound; a torch.profiler breakdown of the f32 and f64 streamed kernel
+     paths; and the T4 sweep (the rate of a chained re-read of a 6-192 MB
+     stream against the copy rate);
   6. the probes T1 (gather_bench: copy, shared-memory and L2 gathers),
      T2 (roundcost_ab: cur/flane/fboth at P = 1..32) and T3
      (stream_bench2: ladder A-F), at the tools' sizes: every variant
@@ -75,6 +80,7 @@ TRIALS = 5
 CHAIN = 10              # SpMVs per timed step (streamed: timing_loop(CHAIN
                         # - 1); resident: timing_loop(CHAIN))
 LONG_CHAIN = 100        # the longer resident chain
+ALONE_REPS = 20         # launches per graph when a kernel is timed alone
 K_COLS = 8              # matmat columns
 # the least time the card could take (the bound_ms of the kernels line):
 # NVIDIA's H100 SXM data sheet, device memory 3.35 TB/s; float32 outside
@@ -149,9 +155,9 @@ def time_ms(step, iters):
     return statistics.median(out)
 
 
-def graphed(step):
-    """Capture one call of ``step`` in a CUDA graph (after warm-up on a
-    side stream, as torch.cuda.graphs asks) and return its replay."""
+def graphed(step, reps=1):
+    """Capture ``reps`` calls of ``step`` in one CUDA graph (after warm-up
+    on a side stream, as torch.cuda.graphs asks) and return its replay."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -161,7 +167,8 @@ def graphed(step):
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        step()
+        for _ in range(reps):
+            step()
     return g.replay
 
 
@@ -253,15 +260,17 @@ def compare_kernels(op, xs):
 def kernel_bytes(op, cs, og, cm):
     """Bytes each kernel must move, computed from its shapes: the streamed
     tables and the output (the x gathers hit L2 and are not counted);
-    K2/K4: its tables, y2 once and the output."""
+    K2/K4: src, the used slots' perm rows, y2 once and the output."""
     nb = lambda t: t.numel() * t.element_size()
     streams = sum(nb(a[0]) + nb(a[1]) + nb(a[2]) for a in cs)
     out_el = 8 if op.dtype == "f64" else 4
     rows = sum(a[1].shape[0] // a[4] for a in cs)
     kv = cm[0][5] if cm else 1
+    used = int((og[0] != op._meta.n_y2_rows).sum())
     return {
         "colsum": streams + rows * 128 * out_el,
-        "outgather": sum(nb(t) for t in og) + op._meta.B_pad * 128 * out_el,
+        "outgather": (nb(og[0]) + used * 128 + nb(og[2])
+                      + op._meta.B_pad * 128 * out_el),
         "colsum_multi": streams + kv * rows * 128 * out_el,
     }
 
@@ -275,24 +284,33 @@ def bound(nbytes, flops, dtype):
 
 
 def resident_bytes(op):
-    """(bytes one K6 step streams, bytes one K6 call must move).  A step
-    reads every stream's wins, vals and idx and the outgather's src and
-    perm, writes y2 and reads it back, and writes out.  A call reads each
-    input once (those tables, the fold and incidence tables, x) and writes
-    out once, whatever its number of steps."""
+    """(bytes one K6 step moves, bytes one K6 call must move).  A step
+    reads the wins row, vals and idx of every vreg its schedule holds,
+    the kernel's tables (schedule, wide rows, incidence, descriptors), src
+    and the used slots' perm rows; writes the sell and long rows of y2 and
+    the chunk rows and reads each back once; writes out; and reads the x
+    table for its gathers, then reads it and writes x_scr in the tap.  A
+    call reads each input once (those tables and x) and writes out once,
+    whatever its number of steps."""
+    import numpy as np
     nb = lambda t: t.numel() * t.element_size()
     meta, arrays = op._meta, op._arrays
     res = arrays["resident"]
     el = 8 if op.dtype == "f64" else 4
-    tables = (sum(nb(st[k]) for st in arrays["streams"]
-                  for k in ("wins", "vals", "idx"))
-              + nb(res["src"]) + nb(arrays["out_perm"]))
+    items = res["items"].cpu().numpy()
+    vregs = np.bincount(items[:, 0], weights=items[:, 2],
+                        minlength=len(meta.streams))
+    tables = sum(n * sum(nb(st[k]) for k in ("wins", "vals", "idx")) / NV
+                 for (_, _, NV), st, n in zip(meta.streams,
+                                              arrays["streams"], vregs))
+    tables += (sum(nb(res[k]) for k in ("items", "wide", "inc_ptr",
+                                        "inc_tot", "inc_mult", "desc"))
+               + nb(res["src"])
+               + int((res["src"] != meta.n_y2_rows).sum()) * 128)
+    x = meta.s_rows * 128 * el
     out = meta.B_pad * 128 * el
-    step = tables + 2 * (meta.n_y2_rows + 1) * 128 * el + out
-    call = (tables + sum(nb(res[k]) for k in ("fold", "inc_ptr", "inc_tot",
-                                               "inc_mult", "desc"))
-            + meta.s_rows * 128 * el + out)
-    return step, call
+    y2 = (meta.n_y2_rows + res["chunk_rows"]) * 128 * el
+    return int(tables + 3 * x + 2 * y2 + out), int(tables + x + out)
 
 
 def compare_resident(op, x2d, steps=(1, 3)):
@@ -313,6 +331,18 @@ def compare_resident(op, x2d, steps=(1, 3)):
                                  f"its plain version: {e} (scaled, abs)")
         worst = [max(a, b) for a, b in zip(worst, e)]
     return worst
+
+
+def phase_split(op, x2d, n):
+    """K6's phase clock over one chain of ``n`` steps (ops/resident.py's
+    STAMPS): {word: value}, the phases' ns summed over the steps."""
+    import torch
+    from dasp_tpu_torch.ops.resident import STAMP_WORDS, STAMPS, \
+        resident_loop
+    stamps = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=x2d.device)
+    resident_loop(op._meta, op._arrays, x2d, n, stamps=stamps)
+    torch.cuda.synchronize()
+    return dict(zip(STAMPS, stamps.tolist()))
 
 
 def compare_probes(dev):
@@ -661,12 +691,25 @@ def main():
             gbs = step_b / (t_step * 1e6)
             log(f"[time] {inst('resident', d)} alone at {name} shapes: "
                 f"{t_step * 1e3:.1f} us per step (chain {LONG_CHAIN}, graph "
-                f"replay); a step streams {step_b / 1e6:.2f} MB (computed) "
+                f"replay); a step moves {step_b / 1e6:.2f} MB (computed) "
                 f"= {gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate, "
                 f"bound {step_b / copy_gbs / 1e3:.1f} us at the copy rate; "
                 f"a chain-{CHAIN} call must move {call_b / 1e6:.2f} MB, "
                 f"bound {bound(call_b, CHAIN * flops, d)[0] * 1e3:.1f} us at "
                 f"{PEAK_BYTES / 1e12} TB/s [{card}]")
+            ph = phase_split(rop, x2d, LONG_CHAIN)
+            us = {k: ph[k] / LONG_CHAIN / 1e3 for k in ("A", "C", "D")}
+            split = sum(us.values())
+            res = rop._arrays["resident"]
+            mid = res["wide"].shape[0] > 0 or rop._meta.n_long_rows > 0
+            log(f"[phase] {name} {d} K6 per step: A {us['A']:.2f} us, B "
+                f"none, C {us['C']:.2f}, D+tap {us['D']:.2f}; sum "
+                f"{split:.2f} us = {split / (t_step * 1e3):.1%} of the "
+                f"graphed step {t_step * 1e3:.2f} us (chain {LONG_CHAIN}); "
+                f"{3 if mid else 2} grid barriers a step, "
+                f"{res['items'].shape[0]} work items, "
+                f"{res['wide'].shape[0]} wide rows; grid {ph['grid']}, "
+                f"blocks/SM {ph['per_sm']} [{card}]")
             if name == "cop20k_like":
                 plain = time_ms(lambda r=rop, x2d=x2d: resident_loop_plain(
                     r._meta, r._arrays, x2d, CHAIN), 2)
@@ -735,8 +778,10 @@ def main():
                                      + cb.KV_SPMM * x_b, cb.KV_SPMM * flops),
                     "outgather": (nbytes["outgather"], used * 128)}
             for k, (base, kern, plain) in pairs.items():
-                got = [time_ms(graphed(f), 20 if f is kern else 5)
-                       for f in (kern, plain)]
+                # the kernel: ALONE_REPS launches in one graph, so that
+                # the host's replay cost does not hide the device time
+                got = [time_ms(graphed(kern, ALONE_REPS), 5) / ALONE_REPS,
+                       time_ms(graphed(plain), 5)]
                 gbs = nbytes[base] / (got[0] * 1e6)
                 b_ms, b_by = bound(*work[base], d)
                 log(f"[time] {k} alone at {name} shapes (graph replay): "

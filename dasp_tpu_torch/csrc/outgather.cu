@@ -12,64 +12,56 @@
 // out) and dasp_outgather_f64 (double; the reference's dd.add of hi/lo
 // pairs across the K sources becomes one rounded fp64 add each).
 //
-// Shape on Hopper: one block of 128 x BPB threads takes BPB output blocks;
-// thread l computes lane l of its block, walking the K sources in order
-// (the same order as the reference and as outgather_plain, so the sums
-// agree bit for bit: each add is rounded, never contracted).  Every
-// thread of a block row reads the same src word, so the branch below is
-// uniform across the row.
-//
 // Ranges: the reference launches once per og_ranges range, each at its
 // own static K, because an unused slot still costs its row load there.
-// Here K is a runtime loop bound, and one launch covers all of B_pad at
-// k_used: a slot that names the zero row is skipped (adding the zero row
-// changes nothing), which saves its y2 row read and its perm read just as
-// the range split did.  So og_src/og_perm are not used on the device.
+// Here one launch covers all of B_pad at k_used: a slot that names the
+// zero row is dropped before its gathers (adding the zero row changes
+// nothing), which saves its y2 and perm reads just as the range split
+// did.  So og_src/og_perm are not used on the device.
 //
-// Bound: bytes.  Per output word: one 4 B (8 B fp64) store plus, per used
-// slot, a 1 B perm read (streamed, coalesced) and one y2 gather within one
-// row (y2 of cop20k_like is ~1.4 MB f32 / 2.8 MB f64: it stays in L2).
+// Bound on this card: latency, not bytes.  Per output word the kernel
+// must move one 4 B (8 B fp64) store and, per used slot, a 1 B perm read
+// and one y2 gather (y2 of cop20k_like is ~1.4 MB f32: it stays in L2):
+// 0.4 / 3.1 us at cop20k_like / webbase_like shapes in f32 at the copy
+// rate, less than one graph-replayed launch on cop20k_like.  What is left
+// is the chain src -> perm -> y2 of dependent loads.  The first design
+// (one thread per lane walking the slots, which the compiler served one
+// slot's loads at a time) paid that chain once per slot.  This one runs
+// the body of outgather_common.cuh: a group of threads per output block,
+// 16 bytes of the block's row per thread, every slot's perm word and
+// gathers in flight before the first add, so a block costs three round
+// trips whatever its K.  Measured with chip_smoke.py on an NVIDIA H100
+// 80GB HBM3 at 700 W, 20 launches captured in one graph, at cop20k_like /
+// webbase_like: f32 2.2 / 3.9 us, f64 2.4 / 5.2, against 2.7-2.8 / 6.3-6.4
+// and 2.8-2.9 / 6.6-6.7 for the first design on the same card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "outgather_common.cuh"
+
 namespace {
 
-constexpr int LANES = 128;
-constexpr int BPB = 4;          // output blocks per CUDA block
-
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
+constexpr int WPB = 8;          // output blocks per CUDA block
 
 template <typename T>
-__global__ void __launch_bounds__(LANES * BPB)
+__global__ void __launch_bounds__(og_threads<T>() * WPB)
 outgather_kernel(const int32_t* __restrict__ src,
                  const int8_t* __restrict__ perm,
                  const T* __restrict__ y2, T* __restrict__ out,
                  int B, int K, int zero_row) {
-  const int l = threadIdx.x;
-  const int64_t b = (int64_t)blockIdx.x * BPB + threadIdx.y;
+  const int64_t b = (int64_t)blockIdx.x * WPB + threadIdx.y;
   if (b >= B) return;
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int s = src[b * K + k];
-    if (s == zero_row) continue;
-    const int p = (uint8_t)perm[((int64_t)k * B + b) * LANES + l];
-    acc = add_rn(acc, y2[(int64_t)s * LANES + p]);
-  }
-  out[b * LANES + l] = acc;
+  outgather_block<T>(src, perm, y2, out, b, B, K, zero_row, threadIdx.x);
 }
 
 template <typename T>
 int launch(const void* src, const void* perm, const void* y2, void* out,
            int B, int K, int zero_row, void* stream) {
   if (B <= 0) return 0;
-  const dim3 block(LANES, BPB);
-  const dim3 grid((B + BPB - 1) / BPB);
+  if (K > OG_KMAX) return (int)cudaErrorInvalidValue;
+  const dim3 block(og_threads<T>(), WPB);
+  const dim3 grid((B + WPB - 1) / WPB);
   outgather_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src), static_cast<const int8_t*>(perm),
       static_cast<const T*>(y2), static_cast<T*>(out), B, K, zero_row);

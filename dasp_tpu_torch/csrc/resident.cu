@@ -2,57 +2,84 @@
 //
 // Replaces dasp_tpu/ops/resident.py:make_resident_loop (:452; kernel
 // kernel_factory :508-1036, pallas_call :1137).  Each step t computes a
-// whole y from the kernel's own copy of x and feeds it back:
-//   (A) colsum of every stream, K1's math, over one concatenated vreg
-//       index, into a partials buffer with one range per stream;
-//   (B) the sell folds into the sell rows of y2 (one y2 word per thread),
-//       and the per-vreg totals of the streams that long rows read (one
-//       warp per vreg);
-//   (C) each long scalar p = sum of multiplicity x total over its list,
-//       into y2 row Z - n_long_rows + p / 127, lane p % 127 (lane 127 and
-//       the tail of the last long row are written as zero);
-//   (D) the outgather, K2's math, into out, and the tap
-//       x_scr[r, l] += y2[0, l] * tap on every row r.
-// Phases are separated by cg::this_grid().sync(); at t = 0 the kernel
-// copies x into x_scr and zeroes the zero row Z of y2.  Every output word
-// is written by one thread and there are no atomics, so the result is
-// deterministic.  Instances (value / sum type): dasp_resident_f32
-// (float / float), dasp_resident_bf16 (__nv_bfloat16 / float),
-// dasp_resident_f64 (double / double: native fp64, where the reference
-// carries double-double pairs and an f32 incidence matmul).
+// whole y from x_t (the caller's x at t = 0, the kernel's own copy x_scr
+// after) and feeds it back:
+//   (A) per work item of the schedule (ops/resident.py:prepare): up to
+//       VPB vregs of one stream, one per thread row.  Each thread row
+//       computes its vreg's colsum (K1's math) in registers, folds its F
+//       consecutive levels into the R levels of the y2 rows it feeds, and,
+//       when a long scalar reads the vreg, its total.  The item then sums
+//       its vregs' folded levels per slice in shared memory and writes
+//       them: as y2 rows when the item holds whole slices (w8 <= VPB), or
+//       as the rows of one chunk in `cbuf` when it holds a chunk of a wide
+//       slice (w8 > VPB);
+//   (C) only when the plan has wide slices or long rows: each wide y2 row
+//       is the sum of its slice's chunk rows; each long scalar
+//       p = sum of multiplicity x total over its list, into y2 row
+//       Z - n_long_rows + p / 127, lane p % 127 (lane 127 and the tail of
+//       the last long row are written as zero);
+//   (D) the outgather (outgather_common.cuh, K2's body) into out, and the
+//       tap x_scr[r, l] = x_t[r, l] + y2[0, l] * tap on every row r.
+// Phases are separated by cg::this_grid().sync(): two per step (after A,
+// after D) when the plan has no wide slice and no long row, three with
+// them; there is no phase B.  Every output word is written by one thread
+// and there are no atomics, so the result is deterministic.  Instances
+// (value / sum type): dasp_resident_f32 (float / float),
+// dasp_resident_bf16 (__nv_bfloat16 / float), dasp_resident_f64 (double /
+// double: native fp64, where the reference carries double-double pairs
+// and an f32 incidence matmul).
 //
 // Order of arithmetic (ops/resident.py's docstring; resident_loop_plain
 // follows it, and every add and product is rounded, never contracted):
-// colsum as K1 (sublanes in order within a level); a sell fold adds its
-// w8 x F partial rows in (w, f) row-major order from the (0, 0) row; a
-// vreg total adds the R partial rows per lane in order, then a lane tree
+// colsum as K1 (sublanes in order within a level); a vreg's folded level r
+// adds its levels rF .. rF+F-1 in order; a chunk adds the folded levels of
+// its (at most VPB) vregs in order; a slice's y2 row is its one chunk, or,
+// for a wide slice, its chunks added in order from the first; a vreg total
+// adds the vreg's levels per lane in order, then a lane tree
 // c[l] += c[l + s], s = 64, 32, 16, 8, 4, 2, 1; a long scalar adds
 // m * total over its list in order from the first product; the outgather
-// adds the k_used slots in order, skipping zero-row slots.
+// adds the k_used slots in order from zero.
+//
+// What bounds it on this card.  Latency, not bytes: the bytes a step
+// moves (each scheduled vreg's wins, vals and idx, the x table, y2 and the
+// chunk rows written and read once, src and the used slots' perm, out,
+// the tap's read and write of x_scr; chip_smoke.py:resident_bytes) take
+// 7-34 us at the copy rate over the two suite arms and three dtypes, and
+// phase A is a chain of dependent loads (idx and wins, then the x
+// gathers) per item at 2 blocks of 512 threads a SM.  The first design
+// spent 27-51 % of its step outside the colsum: one thread row per y2
+// row added up to w8 x F = 128 partial rows one L2 round trip after
+// another while every other block waited at the barrier, every partial
+// row went to device memory and back, each step had three or four grid
+// barriers, the outgather had one slot's loads in flight, and each vreg
+// scanned the stream descriptors.  This design folds in registers and
+// shared memory inside phase A (no partials buffer, no phase B); cuts a
+// wide slice into chunks of VPB vregs whose rows phase C combines with
+// eight loads in flight; stages each item's idx tile, values and wins row
+// into shared memory with cp.async while the block computes the item
+// before it (and the first item of the next step before the step's
+// barriers), so that an item waits only on its x gathers; sorts the
+// schedule by cost so that the dearest items (P = 32 vregs) start first;
+// names each item's stream directly; and issues phase D's gathers of a
+// block together.  Measured with chip_smoke.py on an NVIDIA H100 80GB
+// HBM3 at 700 W, graph replay of a chain of 100, per step at
+// cop20k_like / webbase_like: f32 21.7 / 32.6 us, bf16 21.0 / 28.6, f64
+// 35.2 / 49.2, against 29.9 / 75.6, 27.8 / 71.5 and 52.8 / 88.4 for the
+// first design on the same card and 23.5 / 29.4 (f32) and 26.8 / 39.3
+// (f64) for cuSPARSE.  The phase clock (`stamps`) times the phases;
+// PERF.md has the split before and after.
 //
 // Shape on Hopper: blocks of 128 x VPB threads, as many as are co-resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, fewer if the work
-// needs fewer), launched by cudaLaunchCooperativeKernel; each phase walks
-// its items in a grid-stride loop.  In (A) thread j of a thread row owns
-// lane column j of one vreg, with the vreg's idx tile in shared memory for
-// the cell lookup, as in K1; a stream's stride selects a templated body.
-// Partials, totals, y2 and x_scr live in device memory (L2 for all but the
-// largest plans): the wrapper allocates them, the kernel allocates nothing.
-//
-// Bound: bytes.  Per step the kernel streams every stream's wins, vals and
-// idx (6 B per slot f32, 4 B bf16, 10 B f64), the outgather's src and perm
-// (1 B per output word per used slot), writes and reads back y2 and the
-// partials, and writes out.  Those bytes over the copy rate bound one
-// step: at cop20k_like shapes a step streams 28.7 MB in f32, 19.8 MB in
-// bf16 and 48.0 MB in f64, at webbase_like shapes 46.2, 35.7 and 78.7 MB,
-// which an NVIDIA H100 80GB HBM3 (700 W, ~3.0 TB/s copy rate) needs
-// 6.6-26.3 us to move (chip_smoke.py's `resident* alone` lines).  A chain
-// whose tables fit the 50 MB L2 might re-read them from L2; the probe of
-// csrc/resident_probe.cu found no such gain.  What the
-// design does about the bound: the glue between K1 and K2 on the streamed
-// path (fold reductions, cat, gathers, a dozen launches per step) becomes
-// two passes over partials and y2 inside the one launch, with no host
-// issue per step; the stream is read once per step, coalesced.
+// needs fewer; at most 64 registers a thread, so that two blocks fit a
+// SM), launched by cudaLaunchCooperativeKernel with the two item stages
+// in dynamic shared memory; each phase walks its work in a grid-stride
+// loop.  In (A) thread j of a thread row owns lane column j of its vreg,
+// and reads the cell of each slot from the staged idx tile, as in K1; a
+// stream's stride and the item's F select a templated body.  y2, the
+// chunk rows, the totals and x_scr live in device memory (L2 for all but
+// the largest plans): the wrapper allocates them, the kernel allocates
+// nothing.
 
 #include <algorithm>
 
@@ -62,28 +89,40 @@
 #include <stdint.h>
 
 #include "colsum_common.cuh"
+#include "outgather_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int VPB = 4;                     // thread rows per block
-constexpr int WARPS = VPB * LANES / 32;    // warps per block
+constexpr int VPB = 4;                     // thread rows (vregs) per block
+constexpr int MAX_R = 4;                   // y2 levels per slice (stride 2)
 constexpr int LONG_PACK = 127;             // long scalars per y2 row
+constexpr int COMBINE = 8;                 // chunk rows in flight in (C)
+constexpr int TAP_U = 2;                   // x vectors in flight in the tap
+constexpr int MAX_P = 32;                  // windows of a vreg (the packer's
+                                           // P_CLASSES[-1])
 
 // int64 fields of one stream's row of the descriptor table, in the order
 // of ops/resident.py:DESC_FIELDS
-enum { D_WINS, D_VALS, D_IDX, D_P, D_STRIDE, D_NV, D_VOFF, D_POFF, D_TOFF,
-       NDESC };
+enum { D_WINS, D_VALS, D_IDX, D_P, D_STRIDE, NDESC };
+// int32 fields of a work item (ops/resident.py:ITEM_FIELDS)
+enum { I_STREAM, I_V0, I_NV, I_W, I_F, I_R, I_DST, I_OUT, I_TOT, I_MASK,
+       NITEM };
+enum { DST_Y2, DST_CHUNK, DST_NONE };      // where an item's rows go
+// int32 fields of a wide y2 row (ops/resident.py:WIDE_FIELDS)
+enum { W_Y2, W_FIRST, W_N, W_STEP, NWIDE };
+// words of the phase clock (ops/resident.py:STAMPS)
+enum { S_A, S_C, S_D, S_GRID, S_PER_SM, STAMP_WORDS };
 
 template <typename A>
 struct Params {
   const int64_t* desc;      // (n_streams, NDESC)
-  int n_streams;
-  int64_t nv_total;         // vregs over all streams
-  int64_t n_tot;            // vreg totals (vregs of the long streams)
-  const int64_t* fold;      // (n_fold, 4): first partial row, w8, F, R_st
-  int64_t n_fold;           // sell rows of y2
+  const int32_t* items;     // (n_items, NITEM), in schedule order
+  int n_items;
+  const int32_t* wide;      // (n_wide, NWIDE)
+  int n_wide;
+  A* cbuf;                  // chunk rows of the wide slices
   const int64_t* inc_ptr;   // (n_long + 1,) CSR pointers of the lists
   const int64_t* inc_tot;   // total index of each list entry
   const int32_t* inc_mult;  // multiplicity of each list entry
@@ -94,20 +133,114 @@ struct Params {
   const A* x;               // caller's x table, never written
   A* x_scr;                 // the kernel's x table
   int64_t x_words;
-  A* part;                  // concatenated partials
-  A* y2;                    // (Z + 1, 128)
-  A* tot;                   // (n_tot,)
+  A* y2;                    // (Z + 1, 128): row Z is zeroed at the start
+  A* tot;                   // vreg totals
   A* out;                   // (B, 128)
   int iters;
   A tap;
+  long long* stamps;        // the phase clock (STAMP_WORDS), or null
+  int per_sm;               // co-resident blocks per SM (for the clock)
 };
 
-// one vreg's colsum (K1's body): R = 8/STRIDE level sums of lane j
-template <typename V, typename A, int STRIDE>
-__device__ __forceinline__ void colsum_vreg(int16_t (*tile)[LANES],
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+// The phase clock: thread 0 of block 0 reads %globaltimer at the start,
+// right after every grid.sync() and at the end, and adds each interval to
+// its phase; the times thus include the wait for the slowest block.  With
+// a null pointer it reads no clock.
+struct Clock {
+  long long* out;
+  long long last, ns[STAMP_WORDS];
+  __device__ explicit Clock(long long* stamps)
+      : out(blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0
+                ? stamps : nullptr), last(0) {
+    for (int k = 0; k < STAMP_WORDS; ++k) ns[k] = 0;
+    if (out) last = global_ns();
+  }
+  __device__ void lap(int phase) {
+    if (!out) return;
+    const long long now = global_ns();
+    ns[phase] += now - last;
+    last = now;
+  }
+  __device__ void write(int per_sm) {
+    if (!out) return;
+    ns[S_GRID] = gridDim.x;
+    ns[S_PER_SM] = per_sm;
+    for (int k = 0; k < STAMP_WORDS; ++k) out[k] = ns[k];
+  }
+};
+
+// The operands of one work item, staged into shared memory by cp.async
+// while the block computes the item before it: the item's row of the
+// schedule, and per thread row its vreg's idx tile, values and wins row.
+template <typename V>
+struct alignas(16) Stage {
+  int16_t tile[VPB][SUB][LANES];
+  V vals[VPB][SUB][LANES];
+  int32_t wins[VPB][MAX_P + 1];
+  int32_t item[NITEM];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copies of item g into `st`; every thread commits one group, so
+// that the groups of all threads stay in step.
+template <typename V>
+__device__ __forceinline__ void stage_item(Stage<V>& st, const int32_t* items,
+                                           const int64_t* desc, int64_t g,
+                                           int t, int j) {
+  const int32_t* item = items + g * NITEM;
+  if (t == 0 && j < NITEM) cp_async4(&st.item[j], item + j);
+  if (t < item[I_NV]) {
+    const int64_t* d = desc + (int64_t)item[I_STREAM] * NDESC;
+    const int64_t v = (int64_t)item[I_V0] + t;
+    const int P = (int)d[D_P];
+    cp_async16(&st.tile[t][0][0] + 8 * j,
+               reinterpret_cast<const int16_t*>(d[D_IDX]) + v * SUB * LANES +
+                   8 * j);
+    constexpr int CHUNKS = SUB * LANES * (int)sizeof(V) / 16;
+    const char* gv = reinterpret_cast<const char*>(
+        reinterpret_cast<const V*>(d[D_VALS]) + v * SUB * LANES);
+    char* sv = reinterpret_cast<char*>(&st.vals[t][0][0]);
+#pragma unroll
+    for (int c = j; c < CHUNKS; c += LANES) cp_async16(sv + 16 * c, gv + 16 * c);
+    if (j <= P)
+      cp_async4(&st.wins[t][j],
+                reinterpret_cast<const int32_t*>(d[D_WINS]) + v * (P + 1) + j);
+  }
+  cp_async_commit();
+}
+
+// one vreg's colsum (K1's body) from its staged operands: R = 8/STRIDE
+// level sums of lane j in registers; then its R/F folded levels lv and its
+// lane sum ls
+template <typename V, typename A, int STRIDE, int F>
+__device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
                                             const int32_t* w, int P,
-                                            const V* vals, const A* x,
-                                            A* part, int j) {
+                                            const V (*vals)[LANES],
+                                            const A* x, int j,
+                                            A (&lv)[MAX_R], A& ls) {
   constexpr int R = SUB / STRIDE;
   A acc[R];
 #pragma unroll
@@ -116,17 +249,45 @@ __device__ __forceinline__ void colsum_vreg(int16_t (*tile)[LANES],
   for (int i = 0; i < SUB; ++i) {
     const int lam = (int)tile[i][j] & 127;
     const A xv = x[x_row(tile[i], lam, w, P) * LANES + lam];
-    acc[i / STRIDE] = add_rn(acc[i / STRIDE],
-                             mul_rn(widen(vals[i * LANES + j]), xv));
+    acc[i / STRIDE] = add_rn(acc[i / STRIDE], mul_rn(widen(vals[i][j]), xv));
   }
+  ls = acc[0];
 #pragma unroll
-  for (int L = 0; L < R; ++L) part[L * LANES] = acc[L];
+  for (int L = 1; L < R; ++L) ls = add_rn(ls, acc[L]);
+#pragma unroll
+  for (int r = 0; r < R / F; ++r) {
+    lv[r] = acc[r * F];
+#pragma unroll
+    for (int f = 1; f < F; ++f) lv[r] = add_rn(lv[r], acc[r * F + f]);
+  }
 }
 
 template <typename V, typename A>
-__global__ void __launch_bounds__(LANES * VPB)
+__device__ __forceinline__ void colsum_item(int stride, int F,
+                                            const int16_t (*tile)[LANES],
+                                            const int32_t* w, int P,
+                                            const V (*vals)[LANES],
+                                            const A* x, int j,
+                                            A (&lv)[MAX_R], A& ls) {
+  if (stride == 8) {
+    colsum_fold<V, A, 8, 1>(tile, w, P, vals, x, j, lv, ls);
+  } else if (stride == 4) {
+    if (F == 2) colsum_fold<V, A, 4, 2>(tile, w, P, vals, x, j, lv, ls);
+    else        colsum_fold<V, A, 4, 1>(tile, w, P, vals, x, j, lv, ls);
+  } else {
+    if (F == 4)      colsum_fold<V, A, 2, 4>(tile, w, P, vals, x, j, lv, ls);
+    else if (F == 2) colsum_fold<V, A, 2, 2>(tile, w, P, vals, x, j, lv, ls);
+    else             colsum_fold<V, A, 2, 1>(tile, w, P, vals, x, j, lv, ls);
+  }
+}
+
+template <typename V, typename A>
+__global__ void __launch_bounds__(LANES * VPB, 2)
 resident_kernel(Params<A> p) {
-  __shared__ int16_t tile[VPB][SUB][LANES];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage<V>* const stage = reinterpret_cast<Stage<V>*>(smem);   // two
+  __shared__ A red[VPB][MAX_R][LANES];     // folded levels of the item
+  __shared__ A lsum[VPB][LANES];           // lane sums of the totals
   cg::grid_group grid = cg::this_grid();
   const int j = threadIdx.x;
   const int t = threadIdx.y;
@@ -134,93 +295,111 @@ resident_kernel(Params<A> p) {
   const int64_t rows = (int64_t)gridDim.x * VPB;       // thread rows
   const int64_t tid = row * LANES + j;
   const int64_t nthreads = rows * LANES;
-  const int lane = j & 31;
-  const int64_t warp = tid >> 5;
-  const int64_t nwarps = nthreads >> 5;
   const int64_t long_base = (int64_t)(p.Z - p.n_long_rows) * LANES;
-
-  for (int64_t i = tid; i < p.x_words; i += nthreads) p.x_scr[i] = p.x[i];
-  if (row == 0) p.y2[(int64_t)p.Z * LANES + j] = A(0);
-  grid.sync();
+  const bool mid = p.n_wide > 0 || p.n_long_rows > 0;
+  Clock clock(p.stamps);
+  if (row == 0) p.y2[(int64_t)p.Z * LANES + j] = A(0);  // read from (D) on
+  // the block's first item: its operands do not change from step to step,
+  // so each step stages the next step's first item before its barriers
+  int buf = 0;
+  if (blockIdx.x < p.n_items)
+    stage_item(stage[buf], p.items, p.desc, blockIdx.x, t, j);
 
   for (int it = 0; it < p.iters; ++it) {
-    // (A) colsum; the trip count is uniform in a block (__syncthreads)
-    for (int64_t g = blockIdx.x; g * VPB < p.nv_total; g += gridDim.x) {
-      const int64_t gv = g * VPB + t;
-      const bool live = gv < p.nv_total;
-      const int64_t* d = p.desc;
-      int64_t v = 0;
-      if (live) {
-        for (int s = 1; s < p.n_streams; ++s)
-          if (p.desc[s * NDESC + D_VOFF] <= gv) d = p.desc + s * NDESC;
-        v = gv - d[D_VOFF];
-        const int16_t* ix =
-            reinterpret_cast<const int16_t*>(d[D_IDX]) + v * SUB * LANES;
-#pragma unroll
-        for (int i = 0; i < SUB; ++i) tile[t][i][j] = ix[i * LANES + j];
+    const A* x = it == 0 ? p.x : p.x_scr;
+    // (A) the schedule, two items in flight: item g is computed from its
+    // staged operands while those of g + gridDim.x are copied in
+    for (int64_t g = blockIdx.x; g < p.n_items; g += gridDim.x) {
+      if (g + gridDim.x < p.n_items) {
+        stage_item(stage[buf ^ 1], p.items, p.desc, g + gridDim.x, t, j);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
       __syncthreads();
+      const Stage<V>& st = stage[buf];
+      const int32_t* item = st.item;
+      const int64_t* d = p.desc + (int64_t)item[I_STREAM] * NDESC;
+      const bool live = t < item[I_NV];
+      const int w8 = item[I_W];
+      const int R = item[I_R];
+      const bool total = (item[I_MASK] >> t) & 1;
+      A* const o = item[I_DST] == DST_Y2 ? p.y2 : p.cbuf;
+      const int64_t out0 = item[I_OUT];
+      A lv[MAX_R], ls = A(0);
+#pragma unroll
+      for (int r = 0; r < MAX_R; ++r) lv[r] = A(0);
       if (live) {
-        const int P = (int)d[D_P];
-        const int stride = (int)d[D_STRIDE];
-        const int32_t* w =
-            reinterpret_cast<const int32_t*>(d[D_WINS]) + v * (P + 1) + 1;
-        const V* vals =
-            reinterpret_cast<const V*>(d[D_VALS]) + v * SUB * LANES;
-        A* out = p.part + (d[D_POFF] + v * (SUB / stride)) * LANES + j;
-        if (stride == 2)
-          colsum_vreg<V, A, 2>(tile[t], w, P, vals, p.x_scr, out, j);
-        else if (stride == 4)
-          colsum_vreg<V, A, 4>(tile[t], w, P, vals, p.x_scr, out, j);
-        else
-          colsum_vreg<V, A, 8>(tile[t], w, P, vals, p.x_scr, out, j);
+        colsum_item<V, A>((int)d[D_STRIDE], item[I_F], st.tile[t],
+                          &st.wins[t][1], (int)d[D_P], st.vals[t], x, j, lv,
+                          ls);
+        if (w8 == 1 && item[I_DST] != DST_NONE) {
+#pragma unroll
+          for (int r = 0; r < MAX_R; ++r)
+            if (r < R) o[(out0 + (int64_t)t * R + r) * LANES + j] = lv[r];
+        } else if (w8 > 1) {
+#pragma unroll
+          for (int r = 0; r < MAX_R; ++r)
+            if (r < R) red[t][r][j] = lv[r];
+        }
+        if (total) lsum[t][j] = ls;
       }
       __syncthreads();
-    }
-    grid.sync();
-
-    // (B) sell folds, then vreg totals (one warp per vreg)
-    for (int64_t r = row; r < p.n_fold; r += rows) {
-      const int64_t* f = p.fold + r * 4;
-      const int w8 = (int)f[1];
-      const int F = (int)f[2];
-      const int64_t r_st = f[3];
-      const A* src = p.part + f[0] * LANES + j;
-      A acc = src[0];
-      for (int w = 0; w < w8; ++w)
-        for (int ff = 0; ff < F; ++ff)
-          if (w | ff) acc = add_rn(acc, src[(w * r_st + ff) * LANES]);
-      p.y2[r * LANES + j] = acc;
-    }
-    for (int64_t ti = warp; ti < p.n_tot; ti += nwarps) {
-      const int64_t* d = p.desc;
-      for (int s = 0; s < p.n_streams; ++s) {
-        const int64_t o = p.desc[s * NDESC + D_TOFF];
-        if (o >= 0 && o <= ti && ti < o + p.desc[s * NDESC + D_NV])
-          d = p.desc + s * NDESC;
-      }
-      const int R = SUB / (int)d[D_STRIDE];
-      const A* src = p.part + (d[D_POFF] + (ti - d[D_TOFF]) * R) * LANES;
-      A c[4];
+      if (live && w8 > 1 && t % w8 == 0) {   // the first vreg of a slice
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c[q] = src[lane + 32 * q];
-        for (int r = 1; r < R; ++r)
-          c[q] = add_rn(c[q], src[r * LANES + lane + 32 * q]);
+        for (int r = 0; r < MAX_R; ++r) {
+          if (r < R) {
+            A acc = red[t][r][j];
+            for (int u = 1; u < w8; ++u) acc = add_rn(acc, red[t + u][r][j]);
+            o[(out0 + (int64_t)(t / w8) * R + r) * LANES + j] = acc;
+          }
+        }
       }
-      c[0] = add_rn(c[0], c[2]);      // s = 64
-      c[1] = add_rn(c[1], c[3]);
-      c[0] = add_rn(c[0], c[1]);      // s = 32
+      if (live && total && j < 32) {         // warp 0 of the thread row
+        A c0 = lsum[t][j], c1 = lsum[t][j + 32];
+        const A c2 = lsum[t][j + 64], c3 = lsum[t][j + 96];
+        c0 = add_rn(c0, c2);      // s = 64
+        c1 = add_rn(c1, c3);
+        c0 = add_rn(c0, c1);      // s = 32
 #pragma unroll
-      for (int s = 16; s > 0; s >>= 1)
-        c[0] = add_rn(c[0], __shfl_down_sync(0xffffffffu, c[0], s));
-      if (lane == 0) p.tot[ti] = c[0];
+        for (int s = 16; s > 0; s >>= 1)
+          c0 = add_rn(c0, __shfl_down_sync(0xffffffffu, c0, s));
+        if (j == 0) p.tot[(int64_t)item[I_TOT] + t] = c0;
+      }
+      __syncthreads();
+      buf ^= 1;
     }
+    if (it + 1 < p.iters && blockIdx.x < p.n_items)
+      stage_item(stage[buf], p.items, p.desc, blockIdx.x, t, j);
     grid.sync();
+    clock.lap(S_A);
 
-    // (C) long scalars into the long rows of y2
-    if (p.n_long_rows) {
-      for (int64_t i = tid; i < (int64_t)p.n_long_rows * LANES;
+    // (C) wide rows (one thread row each), long scalars (one thread per
+    // lane of a long row, counted from the thread after the wide rows')
+    if (mid) {
+      for (int64_t r = row; r < p.n_wide; r += rows) {
+        const int32_t* wr = p.wide + r * NWIDE;
+        const int n = wr[W_N];
+        const int64_t step = (int64_t)wr[W_STEP] * LANES;
+        const A* c = p.cbuf + (int64_t)wr[W_FIRST] * LANES + j;
+        A acc = c[0];
+        for (int c0 = 1; c0 < n; c0 += COMBINE) {
+          // unconditional loads (clamped to the last chunk), so that all
+          // COMBINE are in flight before the first add
+          A v[COMBINE];
+#pragma unroll
+          for (int u = 0; u < COMBINE; ++u)
+            v[u] = c[min(c0 + u, n - 1) * step];
+#pragma unroll
+          for (int u = 0; u < COMBINE; ++u) {
+            const A sum = add_rn(acc, v[u]);
+            acc = c0 + u < n ? sum : acc;
+          }
+        }
+        p.y2[(int64_t)wr[W_Y2] * LANES + j] = acc;
+      }
+      const int64_t first = (tid + (int64_t)p.n_wide * LANES) % nthreads;
+      for (int64_t i = first; i < (int64_t)p.n_long_rows * LANES;
            i += nthreads) {
         const int l = (int)(i % LANES);
         const int64_t sp = (i / LANES) * LONG_PACK + l;
@@ -235,45 +414,69 @@ resident_kernel(Params<A> p) {
         p.y2[long_base + i] = acc;
       }
       grid.sync();
+      clock.lap(S_C);
     }
 
-    // (D) outgather, then the tap (y2 row 0 is final; (A) read x_scr
-    // before the syncs above)
-    for (int64_t b = row; b < p.B; b += rows) {
-      A acc = A(0);
-      for (int k = 0; k < p.K; ++k) {
-        const int s = p.src[b * p.K + k];
-        if (s == p.Z) continue;
-        const int l = (uint8_t)p.perm[((int64_t)k * p.B + b) * LANES + j];
-        acc = add_rn(acc, p.y2[(int64_t)s * LANES + l]);
+    // (D) outgather, then the tap in 16-byte vectors, TAP_U of them in
+    // flight per thread (y2 row 0 is final; (A) has read x)
+    for (int64_t b = tid / og_threads<A>(); b < p.B;
+         b += nthreads / og_threads<A>())
+      outgather_block<A>(p.src, p.perm, p.y2, p.out, b, p.B, p.K, p.Z,
+                         (int)(tid % og_threads<A>()));
+    {
+      constexpr int VW = og_lanes<A>();
+      const OgVec<A>* xv = reinterpret_cast<const OgVec<A>*>(x);
+      const OgVec<A>* y0 = reinterpret_cast<const OgVec<A>*>(p.y2);
+      OgVec<A>* xs = reinterpret_cast<OgVec<A>*>(p.x_scr);
+      const int64_t n = p.x_words / VW;
+      for (int64_t i0 = tid; i0 < n; i0 += nthreads * TAP_U) {
+        OgVec<A> a[TAP_U], y[TAP_U];
+#pragma unroll
+        for (int u = 0; u < TAP_U; ++u) {
+          const int64_t i = i0 + u * nthreads;
+          if (i < n) {
+            a[u] = xv[i];
+            y[u] = y0[i % (LANES / VW)];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < TAP_U; ++u) {
+          const int64_t i = i0 + u * nthreads;
+          if (i < n) {
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              a[u].v[e] = add_rn(a[u].v[e], mul_rn(y[u].v[e], p.tap));
+            xs[i] = a[u];
+          }
+        }
       }
-      p.out[b * LANES + j] = acc;
     }
-    for (int64_t i = tid; i < p.x_words; i += nthreads)
-      p.x_scr[i] = add_rn(p.x_scr[i], mul_rn(p.y2[i % LANES], p.tap));
-    if (it + 1 < p.iters) grid.sync();
+    // the clock's last lap waits for every block
+    if (it + 1 < p.iters || p.stamps) grid.sync();
+    clock.lap(S_D);
   }
+  clock.write(p.per_sm);
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename V, typename A>
-int launch(const void* desc, int n_streams, long long nv_total,
-           long long n_tot, const void* fold, long long n_fold,
-           const void* inc_ptr, const void* inc_tot, const void* inc_mult,
-           int n_long, int n_long_rows, const void* src, const void* perm,
-           int B, int K, int Z, const void* x, void* x_scr,
-           long long x_words, void* part, void* y2, void* tot, void* out,
-           int iters, double tap, void* stream) {
-  if (iters < 1 || n_streams < 1 || Z < n_long_rows)
+int launch(const void* desc, const void* items, int n_items,
+           const void* wide, int n_wide, void* cbuf, const void* inc_ptr,
+           const void* inc_tot, const void* inc_mult, int n_long,
+           int n_long_rows, const void* src, const void* perm, int B, int K,
+           int Z, const void* x, void* x_scr, long long x_words, void* y2,
+           void* tot, void* out, int iters, double tap, void* stamps,
+           void* stream) {
+  if (iters < 1 || n_items < 0 || Z < n_long_rows || K > OG_KMAX)
     return (int)cudaErrorInvalidValue;
   Params<A> p;
   p.desc = static_cast<const int64_t*>(desc);
-  p.n_streams = n_streams;
-  p.nv_total = nv_total;
-  p.n_tot = n_tot;
-  p.fold = static_cast<const int64_t*>(fold);
-  p.n_fold = n_fold;
+  p.items = static_cast<const int32_t*>(items);
+  p.n_items = n_items;
+  p.wide = static_cast<const int32_t*>(wide);
+  p.n_wide = n_wide;
+  p.cbuf = static_cast<A*>(cbuf);
   p.inc_ptr = static_cast<const int64_t*>(inc_ptr);
   p.inc_tot = static_cast<const int64_t*>(inc_tot);
   p.inc_mult = static_cast<const int32_t*>(inc_mult);
@@ -287,12 +490,12 @@ int launch(const void* desc, int n_streams, long long nv_total,
   p.x = static_cast<const A*>(x);
   p.x_scr = static_cast<A*>(x_scr);
   p.x_words = x_words;
-  p.part = static_cast<A*>(part);
   p.y2 = static_cast<A*>(y2);
   p.tot = static_cast<A*>(tot);
   p.out = static_cast<A*>(out);
   p.iters = iters;
   p.tap = (A)tap;
+  p.stamps = static_cast<long long*>(stamps);
 
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -300,24 +503,30 @@ int launch(const void* desc, int n_streams, long long nv_total,
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t dyn = 2 * sizeof(Stage<V>);     // the two item stages
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(resident_kernel<V, A>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_kernel<V, A>, LANES * VPB, 0);
+        &per_sm, resident_kernel<V, A>, LANES * VPB, dyn);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // as many blocks as are co-resident, or as the largest phase has rows
-  int64_t need = cdiv(nv_total, VPB);
-  need = std::max(need, cdiv(n_fold, VPB));
-  need = std::max(need, cdiv(B, VPB));
-  need = std::max(need, cdiv(n_tot, WARPS));
+  p.per_sm = per_sm;
+  // as many blocks as are co-resident, or as the largest phase has work
+  int64_t need = n_items;
+  need = std::max(need, cdiv(n_wide, VPB));
+  need = std::max(need, cdiv((int64_t)B * og_threads<A>(),
+                              (int64_t)VPB * LANES));
   need = std::max(need, cdiv(x_words, (int64_t)VPB * LANES));
   need = std::max(need, cdiv(n_long_rows, VPB));
   const int grid = (int)std::max<int64_t>(
       1, std::min<int64_t>(need, (int64_t)per_sm * sms));
   void* args[] = {&p};
   e = cudaLaunchCooperativeKernel((const void*)resident_kernel<V, A>,
-                                  dim3(grid), dim3(LANES, VPB), args, 0,
+                                  dim3(grid), dim3(LANES, VPB), args, dyn,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -327,16 +536,16 @@ int launch(const void* desc, int n_streams, long long nv_total,
 
 #define DASP_RESIDENT(NAME, V, A)                                            \
   extern "C" int NAME(                                                       \
-      const void* desc, int n_streams, long long nv_total, long long n_tot,  \
-      const void* fold, long long n_fold, const void* inc_ptr,               \
-      const void* inc_tot, const void* inc_mult, int n_long,                 \
-      int n_long_rows, const void* src, const void* perm, int B, int K,      \
-      int Z, const void* x, void* x_scr, long long x_words, void* part,      \
-      void* y2, void* tot, void* out, int iters, double tap, void* stream) { \
-    return launch<V, A>(desc, n_streams, nv_total, n_tot, fold, n_fold,      \
-                        inc_ptr, inc_tot, inc_mult, n_long, n_long_rows,     \
-                        src, perm, B, K, Z, x, x_scr, x_words, part, y2,     \
-                        tot, out, iters, tap, stream);                       \
+      const void* desc, const void* items, int n_items, const void* wide,    \
+      int n_wide, void* cbuf, const void* inc_ptr, const void* inc_tot,      \
+      const void* inc_mult, int n_long, int n_long_rows, const void* src,    \
+      const void* perm, int B, int K, int Z, const void* x, void* x_scr,     \
+      long long x_words, void* y2, void* tot, void* out, int iters,          \
+      double tap, void* stamps, void* stream) {                              \
+    return launch<V, A>(desc, items, n_items, wide, n_wide, cbuf, inc_ptr,   \
+                        inc_tot, inc_mult, n_long, n_long_rows, src, perm,   \
+                        B, K, Z, x, x_scr, x_words, y2, tot, out, iters,     \
+                        tap, stamps, stream);                                \
   }
 
 DASP_RESIDENT(dasp_resident_f32, float, float)

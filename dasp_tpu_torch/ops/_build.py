@@ -42,14 +42,14 @@ _D = ctypes.c_double
 _COLSUM = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _COLSUM_MULTI = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _P)
-_RESIDENT = (_P, _I, _L, _L,            # desc, n_streams, nv_total, n_tot
-             _P, _L,                    # fold, n_fold
+_RESIDENT = (_P, _P, _I, _P, _I, _P,    # desc, items, n_items, wide, n_wide,
+                                        # cbuf
              _P, _P, _P, _I, _I,        # inc_ptr, inc_tot, inc_mult,
                                         # n_long, n_long_rows
              _P, _P, _I, _I, _I,        # src, perm, B, K, zero row Z
              _P, _P, _L,                # x, x_scr, x words
-             _P, _P, _P, _P,            # part, y2, tot, out
-             _I, _D, _P)                # iters, tap, stream
+             _P, _P, _P,                # y2, tot, out
+             _I, _D, _P, _P)            # iters, tap, stamps, stream
 _PROBE = (_P, _P, _P, _P, _L, _I, _P)
 _ROUNDCOST = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _STREAM = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)

@@ -4,8 +4,10 @@ its plain version.
 Replaces ``dasp_tpu/ops/pallas_backend.py:_make_outgather`` (:437) and, in
 fp64, ``_make_outgather_dd`` (:378); the CUDA source is
 ``dasp_tpu_torch/csrc/outgather.cu``, whose header note says what bounds
-it on Hopper and why one launch covers every ``og_ranges`` range.  The
-instance follows y2's dtype: f32 (K2) or f64 (K4).
+it on Hopper and why one launch covers every ``og_ranges`` range; its
+body, one warp per output block, is ``csrc/outgather_common.cuh``, which
+K6's phase D runs too.  The instance follows y2's dtype: f32 (K2) or f64
+(K4).
 
 ``outgather`` takes a CPU tensor to ``outgather_plain`` and a CUDA tensor
 to the kernel; there is no fallback from one to the other.
@@ -37,9 +39,10 @@ def outgather_plain(src: torch.Tensor, perm: torch.Tensor,
 def outgather(src: torch.Tensor, perm: torch.Tensor, y2: torch.Tensor,
               zero_row: int) -> torch.Tensor:
     """K2 (K4 for f64 y2) on CUDA tensors, ``outgather_plain`` on CPU
-    tensors.  A slot
-    whose source is ``zero_row`` (the all-zero y2 row) is skipped by the
-    kernel; the plain version adds the zero row, with the same result."""
+    tensors.  For a slot whose source is ``zero_row`` (the all-zero y2
+    row) the kernel reads no perm row and adds a zero, and a block with no
+    other slot writes zeros at once; the plain version adds the zero row,
+    with the same result."""
     if y2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"outgather: unsupported device {y2.device}")
     if y2.dtype not in DTYPES:
@@ -63,6 +66,9 @@ def outgather(src: torch.Tensor, perm: torch.Tensor, y2: torch.Tensor,
         # the kernel library launches on the current device's context
         raise ValueError(f"outgather: {dev} is not the current "
                          "CUDA device (use torch.cuda.device(...))")
+    if perm.data_ptr() % 4:
+        raise ValueError("outgather: perm must be 4-byte aligned (the "
+                         "kernel reads four lane ids at a time)")
     out = torch.empty((B, LANES), dtype=y2.dtype, device=dev)
     entry = f"dasp_outgather_{DTYPES[y2.dtype]}"
     rc = getattr(_build.library(), entry)(

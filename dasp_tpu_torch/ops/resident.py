@@ -17,11 +17,17 @@ from the caller's x (:1212-1230); bf16 plans round y once, at the end.
 
 Host half (``prepare``, numpy, before upload): the outgather source table
 stripped to the zero row (the streamed path's residue rows of y2 do not
-exist here, :245), one fold descriptor per sell row of y2, and the long-row
-incidence as compact per-scalar lists of (total index, multiplicity),
-composed from ``long_idx`` and ``long_gat`` as the reference composes its
-dense incidence matrices (:246-280).  Every plan with a stream is resident;
-the empty plan is not (the reference fails there, ``ROADMAP.md`` §3).
+exist here, :245); the long-row incidence as compact per-scalar lists of
+(total index, multiplicity), composed from ``long_idx`` and ``long_gat`` as
+the reference composes its dense incidence matrices (:246-280); and the
+kernel's schedule.  A work item is up to ``VPB`` consecutive vregs of one
+stream, one per thread row of a CUDA block: whole slices of a sell segment
+(``VPB // w8`` of them when w8 <= VPB), one chunk of ``VPB`` vregs of a
+wide slice (w8 > VPB), or vregs whose totals a long scalar reads and no
+slice holds.  The items are sorted by cost, dearest first (``_cost``).  A
+wide slice's y2 row sums the rows its chunks leave in ``cbuf``: one
+``wide`` row each.  Every plan with a stream is resident; the empty plan
+is not (the reference fails there, ``ROADMAP.md`` §3).
 
 Not ported, because they exist for the TPU's 128 MiB VMEM or for Mosaic's
 static specialisation: ``RESIDENT_BUDGET``, ``resident_bytes``,
@@ -36,14 +42,24 @@ Order of every sum, in the kernel and in ``resident_loop_plain`` alike
 (each add and product rounded, never contracted), for sum type A (f32 for
 f32 and bf16 values, f64 for f64):
 - colsum: K1's, sublane order within each level (``colsum_plain``);
-- sell fold of y2 row r: the w8 x F partial rows in (w, f) row-major
-  order, starting from the (0, 0) row;
-- vreg total: per lane, the R partial rows in order; then a tree over the
+- a vreg's folded level r, for a slice whose R levels take F of the
+  stream's levels each: the vreg's levels rF, ..., rF + F - 1 in order;
+- a chunk (the vregs w = cVPB, ..., cVPB + VPB - 1 of a slice, fewer at
+  its end): their folded levels in order of w;
+- a sell row of y2: its slice's chunks in order from the first (one chunk
+  when w8 <= VPB, so the row is that chunk);
+- vreg total: per lane, the vreg's levels in order; then a tree over the
   128 lanes, ``c[l] += c[l + s]`` for s = 64, 32, ..., 1;
 - long scalar p: its (total, multiplicity) list in ascending total index,
   ``m * total`` rounded and added left to right;
-- outgather: K2's, the k_used slots in order (zero-row slots skipped);
+- outgather: K2's, the k_used slots in order from zero (a zero-row slot
+  adds the zero row's zero);
 - tap: ``x + y2[0] * TAP``, product then sum.
+The longest serial fold is a chunk's: F <= 4 levels in a thread's
+registers, then VPB = 4 vregs' folded levels from shared memory, so no
+fold waits on device memory in phase A.  A wide row's chunks (at most
+w8 / VPB = 8 on the packer's widest class, w8 = 32) are loaded eight at a
+time before the first add, one round trip for the whole fold.
 
 ``resident_loop`` takes a CPU tensor to ``resident_loop_plain`` and a CUDA
 tensor to the kernel; there is no fallback from one to the other.
@@ -65,12 +81,26 @@ from .colsum import colsum_plain
 from .outgather import outgather_plain
 
 # int64 fields of one stream's row of the kernel's descriptor table, in
-# the order of csrc/resident.cu's enum: table pointers, shape, and the
-# stream's first vreg, partial row and vreg total in the concatenated
-# spaces (-1: the stream has no long rows and no totals)
-DESC_FIELDS = ("wins", "vals", "idx", "P", "stride", "NV", "vreg_off",
-               "part_off", "tot_off")
+# the order of csrc/resident.cu's enum: table pointers, windows, stride
+DESC_FIELDS = ("wins", "vals", "idx", "P", "stride")
+VPB = 4             # thread rows (vregs) per CUDA block: the chunk of a fold
+MAX_P = 32          # windows a vreg may reach (the kernel's shared wins row)
+# int32 fields of a work item (csrc/resident.cu's enum): stream, first
+# vreg, vregs, vregs per slice, F, R, destination (DST_*), first output
+# row, total index of the first vreg (-1: none), mask of the thread rows
+# whose totals a long scalar reads
+ITEM_FIELDS = ("stream", "v0", "nv", "w", "F", "R", "dst", "out", "tot",
+               "mask")
+DST_Y2, DST_CHUNK, DST_NONE = 0, 1, 2
+# int32 fields of a wide row: its y2 row, its first chunk row in cbuf, its
+# chunks, the cbuf rows from one chunk to the next
+WIDE_FIELDS = ("y2", "first", "n", "step")
 TREE = (64, 32, 16, 8, 4, 2, 1)     # lane-tree steps of a vreg total
+# words of the phase clock (csrc/resident.cu's enum): ns per phase summed
+# over the steps (A colsum and folds, C wide rows and long scalars, D
+# outgather and tap), the grid and blocks per SM
+STAMPS = ("A", "C", "D", "grid", "per_sm")
+STAMP_WORDS = len(STAMPS)
 
 
 def eligible(meta) -> bool:
@@ -85,46 +115,91 @@ def prepare(meta, arrays: Dict) -> None:
     arrays["resident"] = None
     if not eligible(meta):
         return
-    Z = meta.n_y2_rows
-    r_st = [SUB // stride for _, stride, _ in meta.streams]
     nv = [NV for _, _, NV in meta.streams]
-    vreg_off = np.concatenate([[0], np.cumsum(nv)]).astype(np.int64)
-    part_off = np.concatenate(
-        [[0], np.cumsum([n * r for n, r in zip(nv, r_st)])]).astype(np.int64)
     long_streams = sorted({s for s, _ in meta.long_groups})
     tot_off = np.full(len(nv), -1, dtype=np.int64)
     n_tot = 0
     for s in long_streams:
         tot_off[s] = n_tot
         n_tot += nv[s]
+    inc_ptr, inc_tot, inc_mult = _incidence(meta, arrays, tot_off, n_tot)
+    need = np.zeros(n_tot, dtype=bool)          # totals a scalar reads
+    need[inc_tot] = True
+    items, wide, chunk_rows = _schedule(meta, tot_off, need)
+    arrays["resident"] = dict(
+        src=np.minimum(arrays["out_src"], meta.n_y2_rows).astype(np.int32),
+        items=items, wide=wide, chunk_rows=chunk_rows, tot_off=tot_off,
+        long_streams=long_streams, n_tot=n_tot, inc_ptr=inc_ptr,
+        inc_tot=inc_tot, inc_mult=inc_mult)
 
-    # y2 row r of a sell segment sums partial rows start + w * R_st + f,
-    # w < w8, f < F (the streamed glue's reshape(n, w8, R, F).sum((1, 3)))
-    fold = [np.zeros((0, 4), dtype=np.int64)]
+
+def _schedule(meta, tot_off: np.ndarray, need: np.ndarray):
+    """The kernel's work items (ITEM_FIELDS, sorted by ``_cost``, dearest
+    first), its wide rows (WIDE_FIELDS) and the number of chunk rows:
+    the sell segments' slices in y2 row order, then the vregs whose
+    totals a long scalar reads (``need``, over the total index) and no
+    slice holds, in runs of at most VPB."""
+    r_st = [SUB // stride for _, stride, _ in meta.streams]
+    items, wide = [], []
+    row = chunk_row = 0
+    covered = [np.zeros(NV, dtype=bool) for _, _, NV in meta.streams]
     for stream, off, n_slices, w8, stride in meta.sell_segs:
         R = SUB // stride
         F = r_st[stream] // R
-        start = (part_off[stream]
-                 + (off + np.arange(n_slices)[:, None] * w8) * r_st[stream]
-                 + np.arange(R)[None, :] * F).reshape(-1)
-        fold.append(np.stack([start, np.full_like(start, w8),
-                              np.full_like(start, F),
-                              np.full_like(start, r_st[stream])], axis=1))
-    fold = np.concatenate(fold)
-    if fold.shape[0] != Z - meta.n_long_rows:
-        raise ValueError(f"sell segments give {fold.shape[0]} y2 rows, the "
-                         f"plan has {Z - meta.n_long_rows}")
+        covered[stream][off:off + n_slices * w8] = True
+        if w8 <= VPB:
+            k = VPB // w8
+            for i in range(0, n_slices, k):
+                n = min(k, n_slices - i)
+                items.append([stream, off + i * w8, n * w8, w8, F, R,
+                              DST_Y2, row + i * R])
+        else:
+            n_ch = -(-w8 // VPB)
+            for i in range(n_slices):
+                for c in range(n_ch):
+                    n = min(VPB, w8 - c * VPB)
+                    items.append([stream, off + i * w8 + c * VPB, n, n, F, R,
+                                  DST_CHUNK, chunk_row + c * R])
+                wide += [[row + i * R + r, chunk_row + r, n_ch, R]
+                         for r in range(R)]
+                chunk_row += n_ch * R
+        row += n_slices * R
+    if row != meta.n_y2_rows - meta.n_long_rows:
+        raise ValueError(f"sell segments give {row} y2 rows, the plan has "
+                         f"{meta.n_y2_rows - meta.n_long_rows}")
+    for s in np.flatnonzero(tot_off >= 0):        # totals no slice computes
+        v = np.flatnonzero(need[tot_off[s]:tot_off[s] + covered[s].size]
+                           & ~covered[s])
+        i = 0
+        while i < v.size:
+            n = 1
+            while n < VPB and i + n < v.size and v[i + n] == v[i] + n:
+                n += 1
+            items.append([int(s), int(v[i]), n, 1, 1, 0, DST_NONE, 0])
+            i += n
+    items = np.array(items, dtype=np.int64).reshape(-1, 8)
+    tot = np.where(tot_off[items[:, 0]] >= 0,
+                   tot_off[items[:, 0]] + items[:, 1], -1)
+    mask = np.zeros(len(items), dtype=np.int64)
+    for t in range(VPB):
+        hit = (tot >= 0) & (t < items[:, 2])
+        hit[hit] = need[tot[hit] + t]
+        mask |= hit.astype(np.int64) << t
+    items = np.concatenate([items, np.where(mask > 0, tot, -1)[:, None],
+                            mask[:, None]], axis=1)
+    P = np.array([P for P, _, _ in meta.streams])
+    items = items[np.argsort(-_cost(P[items[:, 0]], items[:, 2]),
+                             kind="stable")]
+    return (items.astype(np.int32),
+            np.array(wide, dtype=np.int32).reshape(-1, len(WIDE_FIELDS)),
+            chunk_row)
 
-    layout = np.stack([np.array([P for P, _, _ in meta.streams]),
-                       np.array([st for _, st, _ in meta.streams]),
-                       np.array(nv), vreg_off[:-1], part_off[:-1],
-                       tot_off], axis=1).astype(np.int64)
-    inc_ptr, inc_tot, inc_mult = _incidence(meta, arrays, tot_off, n_tot)
-    arrays["resident"] = dict(
-        src=np.minimum(arrays["out_src"], Z).astype(np.int32),
-        fold=fold, layout=layout, long_streams=long_streams,
-        part_rows=int(part_off[-1]), n_tot=n_tot,
-        inc_ptr=inc_ptr, inc_tot=inc_tot, inc_mult=inc_mult)
+
+def _cost(P: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """An item's cost for the schedule's order: its vregs, each dearer by
+    a quarter per doubling of its stream's windows P (a vreg whose slots
+    reach 32 windows costs 2.2x a one-window vreg: T2 flane, PERF.md)."""
+    return n * (1.0 + 0.25 * np.log2(P))
 
 
 def _incidence(meta, arrays, tot_off: np.ndarray, n_tot: int):
@@ -162,17 +237,77 @@ def _incidence(meta, arrays, tot_off: np.ndarray, n_tot: int):
     return inc_ptr, uk % max(n_tot, 1), mult.astype(np.int32)
 
 
+def _runs(first: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """The concatenated ranges first[i] .. first[i] + count[i] - 1."""
+    count = count.astype(np.int64)
+    return (np.repeat(first.astype(np.int64) - np.cumsum(count) + count,
+                      count) + np.arange(int(count.sum())))
+
+
+def _check_schedule(meta, res: Dict) -> None:
+    """Raise ValueError unless the schedule fits the plan: every item's
+    vregs inside its stream and its F x R the stream's levels, every sell
+    row of y2 and every chunk row written exactly once, every wide row's
+    chunks inside cbuf, and every total that a long scalar reads
+    computed.  The kernel checks none of it."""
+    it, wide = res["items"].astype(np.int64), res["wide"].astype(np.int64)
+    if it.ndim != 2 or it.shape[1] != len(ITEM_FIELDS) or (
+            wide.ndim != 2 or wide.shape[1] != len(WIDE_FIELDS)):
+        raise ValueError("the schedule or the wide-row table has the wrong "
+                         "shape")
+    s, v0, n, w, F, R, dst, out, tot, mask = it.T
+    if it.size and not (0 <= s.min() and s.max() < len(meta.streams)):
+        raise ValueError("a work item names a stream that does not exist")
+    if max(P for P, _, _ in meta.streams) > MAX_P:
+        raise ValueError(f"a stream reaches more than {MAX_P} windows")
+    s = np.clip(s, 0, len(meta.streams) - 1)
+    NV = np.array([NV for _, _, NV in meta.streams])[s]
+    r_st = SUB // np.array([st for _, st, _ in meta.streams])[s]
+    emits = dst != DST_NONE
+    if not (np.all((1 <= n) & (n <= VPB) & (0 <= v0) & (v0 + n <= NV)
+                   & (w >= 1) & (n % np.maximum(w, 1) == 0)
+                   & (0 <= dst) & (dst <= DST_NONE))
+            and np.all(~emits | ((F >= 1) & (R >= 1) & (F * R == r_st)))):
+        raise ValueError("a work item reads outside its stream or folds "
+                         "other levels than its stream has")
+    n_sell = meta.n_y2_rows - meta.n_long_rows
+    y2_rows, chunk_rows = [wide[:, 0]], []
+    for d, rows in ((DST_Y2, y2_rows), (DST_CHUNK, chunk_rows)):
+        k = dst == d
+        rows.append(_runs(out[k], n[k] // w[k] * R[k]))
+    y2_rows, chunk_rows = np.concatenate(y2_rows), np.concatenate(chunk_rows)
+    if not (np.array_equal(np.bincount(y2_rows[(0 <= y2_rows)
+                                               & (y2_rows < n_sell)],
+                                       minlength=n_sell),
+                           np.ones(n_sell, dtype=np.int64))
+            and y2_rows.size == n_sell
+            and np.array_equal(np.sort(chunk_rows),
+                               np.arange(res["chunk_rows"]))):
+        raise ValueError("the schedule does not write every sell row of y2 "
+                         "and every chunk row exactly once")
+    if wide.size and not np.all(
+            (wide[:, 1] >= 0) & (wide[:, 2] >= 1) & (wide[:, 3] >= 1)
+            & (wide[:, 1] + (wide[:, 2] - 1) * wide[:, 3]
+               < res["chunk_rows"])):
+        raise ValueError("a wide row reads outside the chunk rows")
+    m = mask > 0
+    bit = (((mask[m, None] >> np.arange(VPB)) & 1) > 0)
+    done = (tot[m, None] + np.arange(VPB))[bit]
+    if not (np.all(tot[m] >= 0) and np.all(mask < (1 << n))
+            and np.all((0 <= done) & (done < res["n_tot"]))
+            and np.isin(res["inc_tot"], done).all()):
+        raise ValueError("a long scalar reads a vreg total that the "
+                         "schedule does not compute")
+
+
 def to_device(meta, res: Dict, streams: List[Dict], dev) -> Dict:
     """The numpy tables of ``prepare`` -> tensors on ``dev``, checked
-    against the bounds the kernel does not check, with the kernel's
-    stream descriptor table (pointers of the uploaded ``streams``) and the
-    plain version's grouped views of the same tables."""
+    against the bounds the kernel does not check (``_check_schedule``),
+    with the kernel's stream descriptor table (pointers of the uploaded
+    ``streams``) and the plain version's padded incidence lists."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    fold, n_tot = res["fold"], res["n_tot"]
-    last = fold[:, 0] + (fold[:, 1] - 1) * fold[:, 3] + fold[:, 2] - 1
-    if fold.size and (fold[:, 0].min() < 0
-                      or last.max() >= res["part_rows"]):
-        raise ValueError("a sell fold reads outside the partials")
+    n_tot = res["n_tot"]
+    _check_schedule(meta, res)
     if res["inc_tot"].size and not (0 <= res["inc_tot"].min()
                                     and res["inc_tot"].max() < n_tot):
         raise ValueError("a long scalar names a vreg total that does not "
@@ -187,10 +322,9 @@ def to_device(meta, res: Dict, streams: List[Dict], dev) -> Dict:
     desc[:, 0] = [st["wins"].data_ptr() for st in streams]
     desc[:, 1] = [st["vals"].data_ptr() for st in streams]
     desc[:, 2] = [st["idx"].data_ptr() for st in streams]
-    desc[:, 3:] = res["layout"]
-    # plain version: fold rows grouped by (w8, F, R_st), and the lists
-    # padded to one length (pad: the zero appended to the totals, x 0)
-    classes = np.unique(fold[:, 1:], axis=0) if fold.size else []
+    desc[:, 3:] = [[P, stride] for P, stride, _ in meta.streams]
+    # plain version: the lists padded to one length (pad: the zero
+    # appended to the totals, x 0)
     counts = np.diff(res["inc_ptr"])
     width = int(counts.max(initial=1))
     pad_t = np.full((meta.n_long, width), n_tot, dtype=np.int64)
@@ -201,15 +335,12 @@ def to_device(meta, res: Dict, streams: List[Dict], dev) -> Dict:
     pad_t[row, col] = res["inc_tot"]
     pad_m[row, col] = res["inc_mult"]
     return dict(
-        src=t(res["src"]), fold=t(fold), desc=t(desc),
+        src=t(res["src"]), desc=t(desc), items=t(res["items"]),
+        wide=t(res["wide"]), chunk_rows=res["chunk_rows"],
         inc_ptr=t(res["inc_ptr"]), inc_tot=t(res["inc_tot"]),
         inc_mult=t(res["inc_mult"]), inc_pad_t=t(pad_t), inc_pad_m=t(pad_m),
-        fold_classes=[(int(w8), int(F), int(rs), t(np.flatnonzero(
-            (fold[:, 1] == w8) & (fold[:, 2] == F) & (fold[:, 3] == rs))))
-            for w8, F, rs in classes],
-        layout=res["layout"], long_streams=list(res["long_streams"]),
-        part_rows=res["part_rows"], n_tot=n_tot,
-        nv_total=int(res["layout"][:, 2].sum()))
+        tot_off=res["tot_off"], long_streams=list(res["long_streams"]),
+        n_tot=n_tot)
 
 
 def _check(fn: str, meta, arrays: Dict, x2d: torch.Tensor, iters) -> str:
@@ -236,35 +367,54 @@ def _check(fn: str, meta, arrays: Dict, x2d: torch.Tensor, iters) -> str:
         # the kernel library launches on the current device's context
         raise ValueError(f"{fn}: {x2d.device} is not the current CUDA "
                          "device (use torch.cuda.device(...))")
+    if x2d.device.type == "cuda" and x2d.data_ptr() % 16:
+        raise ValueError(f"{fn}: x must be 16-byte aligned (the tap reads "
+                         "it in 16-byte vectors)")
     return meta.dtype
 
 
-def resident_loop(meta, arrays: Dict, x2d: torch.Tensor,
-                  iters: int) -> torch.Tensor:
+def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
+                  stamps: torch.Tensor = None) -> torch.Tensor:
     """K6 on CUDA tensors (one cooperative launch for all ``iters``
     steps), ``resident_loop_plain`` on CPU tensors.  x2d (s_rows, 128),
     f64 for f64 plans and f32 otherwise, is never written.  Returns y
-    (n_rows,) in the plan's row order and output dtype."""
+    (n_rows,) in the plan's row order and output dtype.
+
+    ``stamps``, an int64 CUDA tensor of ``STAMP_WORDS`` on x2d's device,
+    turns on the kernel's phase clock (``STAMPS`` names its words): the
+    nanoseconds of each phase summed over the steps, each up to the
+    ``grid.sync()`` that ends it, and the grid it ran on.  The plain
+    version has no clock."""
     name = _check("resident_loop", meta, arrays, x2d, iters)
+    if stamps is not None and (
+            stamps.device != x2d.device or x2d.device.type != "cuda"
+            or stamps.dtype != torch.int64
+            or tuple(stamps.shape) != (STAMP_WORDS,)):
+        raise ValueError(f"resident_loop: stamps must be an int64 "
+                         f"({STAMP_WORDS},) tensor on x's CUDA device, got "
+                         f"{stamps.dtype} {tuple(stamps.shape)} on "
+                         f"{stamps.device} (x on {x2d.device})")
     if x2d.device.type == "cpu":
         return resident_loop_plain(meta, arrays, x2d, iters)
     res = arrays["resident"]
     dev, dt = x2d.device, x2d.dtype
     x_scr = torch.empty_like(x2d)
-    part = torch.empty((res["part_rows"], LANES), dtype=dt, device=dev)
     y2 = torch.empty((meta.n_y2_rows + 1, LANES), dtype=dt, device=dev)
+    cbuf = torch.empty((max(res["chunk_rows"], 1), LANES), dtype=dt,
+                       device=dev)
     tot = torch.empty(max(res["n_tot"], 1), dtype=dt, device=dev)
     out = torch.empty((meta.B_pad, LANES), dtype=dt, device=dev)
     entry = f"dasp_resident_{name}"
     rc = getattr(_build.library(), entry)(
-        res["desc"].data_ptr(), len(meta.streams), res["nv_total"],
-        res["n_tot"], res["fold"].data_ptr(), res["fold"].shape[0],
-        res["inc_ptr"].data_ptr(), res["inc_tot"].data_ptr(),
-        res["inc_mult"].data_ptr(), meta.n_long, meta.n_long_rows,
-        res["src"].data_ptr(), arrays["out_perm"].data_ptr(), meta.B_pad,
-        meta.k_used, meta.n_y2_rows, x2d.data_ptr(), x_scr.data_ptr(),
-        x2d.numel(), part.data_ptr(), y2.data_ptr(), tot.data_ptr(),
-        out.data_ptr(), iters, float(cb.TAP),
+        res["desc"].data_ptr(), res["items"].data_ptr(),
+        res["items"].shape[0], res["wide"].data_ptr(), res["wide"].shape[0],
+        cbuf.data_ptr(), res["inc_ptr"].data_ptr(),
+        res["inc_tot"].data_ptr(), res["inc_mult"].data_ptr(), meta.n_long,
+        meta.n_long_rows, res["src"].data_ptr(),
+        arrays["out_perm"].data_ptr(), meta.B_pad, meta.k_used,
+        meta.n_y2_rows, x2d.data_ptr(), x_scr.data_ptr(), x2d.numel(),
+        y2.data_ptr(), tot.data_ptr(), out.data_ptr(), iters, float(cb.TAP),
+        None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
     resident_loop.launches[name] += 1
@@ -279,59 +429,71 @@ def resident_loop_plain(meta, arrays: Dict, x2d: torch.Tensor,
     """The computation of ``resident_loop`` in plain PyTorch on any
     device, in the kernel's order of arithmetic (module docstring)."""
     _check("resident_loop_plain", meta, arrays, x2d, iters)
-    res = arrays["resident"]
     x = x2d.clone()
-    zero = x.new_zeros((1, LANES))
     for _ in range(iters):
-        part = torch.cat([colsum_plain(st["wins"], st["vals"], st["idx"], x,
-                                       stride)
-                          for (_, stride, _), st in zip(meta.streams,
-                                                        arrays["streams"])])
-        rows = [_folds_plain(res, part)]
-        if meta.n_long:
-            rows.append(_long_rows_plain(meta, res, part))
-        y2 = torch.cat(rows + [zero])
-        out = outgather_plain(res["src"], arrays["out_perm"], y2)
+        y2 = y2_plain(meta, arrays, x)
+        out = outgather_plain(arrays["resident"]["src"], arrays["out_perm"],
+                              y2)
         x = x + y2[0] * cb.TAP
     return _finish(meta, arrays, x2d, out)
 
 
-def _folds_plain(res: Dict, part: torch.Tensor) -> torch.Tensor:
-    """The sell rows of y2, each the sum of its w8 x F partial rows."""
-    y = part.new_empty((res["fold"].shape[0], LANES))
-    for w8, F, r_st, rows in res["fold_classes"]:
-        start = res["fold"][rows, 0]
-        acc = part[start]
-        for w in range(w8):
-            for f in range(F):
-                if w or f:
-                    acc = acc + part[start + (w * r_st + f)]
-        y[rows] = acc
-    return y
+def y2_plain(meta, arrays: Dict, x: torch.Tensor) -> torch.Tensor:
+    """One step's y2 from the x table x: the sell rows, the long rows and
+    the zero row, (n_y2_rows + 1, 128) in x's dtype."""
+    parts = [colsum_plain(st["wins"], st["vals"], st["idx"], x, stride)
+             for (_, stride, _), st in zip(meta.streams, arrays["streams"])]
+    rows = [_folds_plain(meta, parts)]
+    if meta.n_long:
+        rows.append(_long_rows_plain(meta, arrays["resident"], parts))
+    return torch.cat(rows + [x.new_zeros((1, LANES))])
 
 
-def _long_rows_plain(meta, res: Dict, part: torch.Tensor) -> torch.Tensor:
+def _folds_plain(meta, parts: List[torch.Tensor]) -> torch.Tensor:
+    """The sell rows of y2 from the streams' partials: per vreg its F
+    levels in order, per chunk of VPB vregs their sums in order, per
+    slice its chunks in order."""
+    rows = [parts[0].new_zeros((0, LANES))]
+    for stream, off, n_slices, w8, stride in meta.sell_segs:
+        R_st = SUB // meta.streams[stream][1]
+        R = SUB // stride
+        F = R_st // R
+        p = parts[stream][off * R_st:(off + n_slices * w8) * R_st].view(
+            n_slices, w8, R, F, LANES)
+        lv = p[:, :, :, 0]
+        for f in range(1, F):
+            lv = lv + p[:, :, :, f]
+        y = None
+        for c0 in range(0, w8, VPB):
+            c = lv[:, c0]
+            for w in range(c0 + 1, min(w8, c0 + VPB)):
+                c = c + lv[:, w]
+            y = c if y is None else y + c
+        rows.append(y.reshape(n_slices * R, LANES))
+    return torch.cat(rows)
+
+
+def _long_rows_plain(meta, res: Dict,
+                     parts: List[torch.Tensor]) -> torch.Tensor:
     """The long rows of y2: per-vreg totals of the long streams, the
     scalars as multiplicity-weighted sums of totals, packed LONG_PACK to a
     row with lane 127 zero."""
     tots = []
     for s in res["long_streams"]:
         _, stride, nv = meta.streams[s]
-        R = SUB // stride
-        p0 = int(res["layout"][s, 4])
-        c = part[p0:p0 + nv * R].view(nv, R, LANES)
+        c = parts[s].view(nv, SUB // stride, LANES)
         acc = c[:, 0]
-        for r in range(1, R):
+        for r in range(1, c.shape[1]):
             acc = acc + c[:, r]
         for s_ in TREE:
             acc = acc[:, :s_] + acc[:, s_:2 * s_]
         tots.append(acc[:, 0])
-    T = torch.cat(tots + [part.new_zeros(1)])
-    ti, m = res["inc_pad_t"], res["inc_pad_m"].to(part.dtype)
+    T = torch.cat(tots + [parts[0].new_zeros(1)])
+    ti, m = res["inc_pad_t"], res["inc_pad_m"].to(T.dtype)
     acc = m[:, 0] * T[ti[:, 0]]
     for c in range(1, ti.shape[1]):
         acc = acc + m[:, c] * T[ti[:, c]]
-    rows = part.new_zeros(meta.n_long_rows * LONG_PACK)
+    rows = T.new_zeros(meta.n_long_rows * LONG_PACK)
     rows[:meta.n_long] = acc
     return torch.nn.functional.pad(
         rows.view(meta.n_long_rows, LONG_PACK), (0, LANES - LONG_PACK))

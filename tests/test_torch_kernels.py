@@ -28,6 +28,7 @@ from dasp_tpu.wplan import build_wplan
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
 from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
+from dasp_tpu_torch.wplan import K_SOURCES
 
 torch.set_num_threads(1)
 TOL = 1e-6
@@ -228,3 +229,40 @@ def test_wrappers_refuse_other_dtypes():
     perm = torch.zeros((1, 1, 128), dtype=torch.int8)
     with pytest.raises(ValueError, match="unsupported y2 dtype"):
         outgather(src, perm, torch.zeros((2, 128), dtype=torch.bfloat16), 1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_outgather_plain_empty_and_full_blocks(dtype):
+    """Blocks whose K_SOURCES slots all name the zero row give zeros;
+    blocks with every slot used give their slots' gathers summed in slot
+    order from zero (a numpy restatement of the kernel's adds, bit for
+    bit), and both agree with _make_outgather (_make_outgather_dd for
+    f64) in interpret mode."""
+    rng = np.random.default_rng(11)
+    B, R2 = pb.OB, 40
+    zero = R2 - 1
+    src = rng.integers(0, zero, (B, K_SOURCES)).astype(np.int32)
+    src[::2] = zero
+    perm = rng.integers(0, 128, (K_SOURCES, B, 128)).astype(np.int8)
+    y2 = rng.standard_normal((R2, 128))
+    y2[zero] = 0
+    y2 = y2.astype(np.float32 if dtype == "f32" else np.float64)
+    want = np.zeros((B, 128), y2.dtype)
+    lanes = perm.astype(np.int64)
+    for b in range(B):
+        for k in range(K_SOURCES):
+            if src[b, k] != zero:
+                want[b] = want[b] + y2[src[b, k], lanes[k, b]]
+    ours = outgather(torch.from_numpy(src), torch.from_numpy(perm),
+                     torch.from_numpy(y2), zero).numpy()
+    np.testing.assert_array_equal(ours, want)
+    assert not ours[::2].any() and ours[1::2].all()
+    if dtype == "f32":
+        ref = pb._make_outgather(B, R2, K_SOURCES, True)(src, perm, y2)
+        assert _scaled_err(ours, np.asarray(ref)) <= TOL
+    else:
+        yh, yl = dd.from_f64(y2)
+        h, lo = pb._make_outgather_dd(B, R2, K_SOURCES, True)(src, perm, yh,
+                                                              yl)
+        assert _scaled_err(ours, dd.to_f64(np.asarray(h),
+                                           np.asarray(lo))) <= TOL_F64

@@ -28,7 +28,9 @@ plans_stay_static, test_resident_dd_f32_colsum_tier), which test the
 TPU's VMEM budget and tiers the port does not have.
 """
 
+import functools
 import inspect
+import operator
 
 import numpy as np
 import pytest
@@ -42,7 +44,9 @@ from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.config import DaspConfig
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops import resident
+from dasp_tpu_torch.ops.colsum import colsum_plain
 from dasp_tpu_torch.ops.cuda_backend import TorchSpMV
+from dasp_tpu_torch.wplan import SUB
 from dasp_tpu_torch.probes import resident_probe as t4
 
 torch.set_num_threads(1)
@@ -78,6 +82,17 @@ def _long_row_csr():
     rng = np.random.default_rng(3)
     lens = rng.integers(1, 6, 2000)
     lens[0] = 150_000
+    return tsp.random_csr(2000, 2000, lens, rng), rng
+
+
+def _wide_long_csr():
+    """256 rows of 220-255 nnz (a w8 = 32 slice folded into a stride-2
+    stream: w8 x F = 128 partial rows per y2 row), three rows of 6000 nnz
+    (long rows) and short rows: every kind of work item of the schedule."""
+    rng = np.random.default_rng(5)
+    lens = rng.integers(1, 6, 2000)
+    lens[:256] = rng.integers(220, 256, 256)
+    lens[300:303] = 6000
     return tsp.random_csr(2000, 2000, lens, rng), rng
 
 
@@ -204,7 +219,7 @@ def test_incidence_matches_reference_bigs(name):
         c0 = ref["big_c0"].get(s, 0)
         want[:, c0:c0 + big.shape[1]] = big[:meta.n_long]
         got = np.zeros((meta.n_long, nv))
-        t0 = res["layout"][s, 5]
+        t0 = res["tot_off"][s]
         counts = np.diff(res["inc_ptr"])
         rows = np.repeat(np.arange(meta.n_long), counts)
         mine = (res["inc_tot"] >= t0) & (res["inc_tot"] < t0 + nv)
@@ -361,3 +376,156 @@ def test_probe_plain_matches_numpy():
     with pytest.raises(ValueError, match="x must be"):
         t4.resident_probe(torch.from_numpy(vals), torch.from_numpy(idx),
                           torch.from_numpy(x2d[:8]))
+
+
+def _sum(terms):
+    """Left-to-right rounded sum in the terms' own dtype."""
+    return functools.reduce(operator.add, terms)
+
+
+def _emulate_schedule(meta, arrays, x2d):
+    """csrc/resident.cu's phases A and C for one step, restated in numpy
+    item by item from the schedule the kernel runs (the items, the wide
+    rows, the incidence lists), in the written order of every sum: the
+    sell and long rows of y2, unwritten rows left NaN."""
+    res = arrays["resident"]
+    items, wide = res["items"].numpy(), res["wide"].numpy()
+    parts = [colsum_plain(st["wins"], st["vals"], st["idx"], x2d, s).numpy()
+             for (_, s, _), st in zip(meta.streams, arrays["streams"])]
+    dt = parts[0].dtype
+    Z = meta.n_y2_rows
+    y2 = np.full((Z + 1, 128), np.nan, dt)
+    y2[Z] = 0
+    cbuf = np.full((res["chunk_rows"], 128), np.nan, dt)
+    tot = np.full(max(res["n_tot"], 1), np.nan, dt)
+    for s, v0, n, w, F, R, dst, out, t0, mask in items:
+        r_st = SUB // meta.streams[s][1]
+        lv = []
+        for t in range(n):
+            acc = parts[s][(v0 + t) * r_st:(v0 + t + 1) * r_st]
+            lv.append([_sum(acc[r * F:(r + 1) * F]) for r in range(R)])
+            if mask >> t & 1:
+                c = _sum(acc)
+                for s_ in resident.TREE:
+                    c = c[:s_] + c[s_:2 * s_]
+                tot[t0 + t] = c[0]
+        if dst == resident.DST_NONE:
+            continue
+        o = y2 if dst == resident.DST_Y2 else cbuf
+        for t in range(0, n, w):
+            for r in range(R):
+                o[out + t // w * R + r] = _sum([lv[t + u][r]
+                                                for u in range(w)])
+    for row, first, n, step in wide:
+        y2[row] = _sum([cbuf[first + c * step] for c in range(n)])
+    base = Z - meta.n_long_rows
+    y2[base:Z] = 0
+    ptr, ti, m = (res[k].numpy() for k in ("inc_ptr", "inc_tot", "inc_mult"))
+    for p in range(meta.n_long):
+        k0, k1 = ptr[p], ptr[p + 1]
+        if k0 < k1:
+            y2[base + p // 127, p % 127] = _sum(
+                [dt.type(m[k]) * tot[ti[k]] for k in range(k0, k1)])
+    return y2
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+def test_schedule_matches_plain_fold_order(dtype):
+    """On a plan with a wide slice and long rows, the kernel's schedule
+    restated in numpy (``_emulate_schedule``) gives the y2 of
+    ``y2_plain`` bit for bit: the schedule writes every row once, in the
+    order of arithmetic that the plain version follows."""
+    csr, rng = _wide_long_csr()
+    op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
+    meta, arrays = op._meta, op._arrays
+    res = arrays["resident"]
+    w8f = max(w8 * (SUB // meta.streams[s][1]) // (SUB // st)
+              for s, _, _, w8, st in meta.sell_segs)
+    dsts = set(res["items"][:, 6].tolist())
+    assert w8f >= 64 and meta.n_long and res["wide"].shape[0]
+    assert dsts == {resident.DST_Y2, resident.DST_CHUNK, resident.DST_NONE}
+    x2d = op._prep_x(rng.standard_normal(csr.n_cols))
+    want = resident.y2_plain(meta, arrays, x2d).numpy()
+    np.testing.assert_array_equal(_emulate_schedule(meta, arrays, x2d), want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+def test_wide_long_plain_matches_reference(dtype):
+    """The plain resident loop on the wide-slice, long-row plan against
+    the JAX package: f32 against PallasSpMV (interpret mode) and the
+    golden at 2e-5, f64 against the golden at 1e-10, bf16 against the
+    golden of the bf16-rounded A and x at 0.05 (all scaled by
+    max(|golden|, 1))."""
+    csr, rng = _wide_long_csr()
+    op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
+    x = rng.standard_normal(csr.n_cols)
+    y = _port_loop(op, x, 1)
+    if dtype == "bf16":
+        r16 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).double().numpy()
+        golden = tsp.CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr,
+                               csr.col_idx, r16(csr.values)).spmv(r16(x))
+        assert _err(y, golden, golden) <= 0.05
+        return
+    golden = csr.spmv(x)
+    assert _err(y, golden, golden) <= {"f32": 2e-5, "f64": 1e-10}[dtype]
+    if dtype == "f32":
+        ref = pb.PallasSpMV(_ref(csr), "f32")
+        assert _err(y, ref(x), golden) <= 2e-5
+
+
+def _corrupt(name, res, meta):
+    items, wide = res["items"], res["wide"]
+    y2_items = np.flatnonzero(items[:, 6] == resident.DST_Y2)
+    if name == "stream":
+        items[0, 0] = len(meta.streams)
+    elif name == "past_stream":
+        items[0, 1] = meta.streams[items[0, 0]][2]
+    elif name == "levels":
+        items[y2_items[0], 4] *= 2
+    elif name == "too_many_vregs":
+        items[0, 2] = resident.VPB + 1
+    elif name == "row_twice":
+        items[y2_items[1]] = items[y2_items[0]]
+    elif name == "row_missing":
+        res["items"] = np.delete(items, y2_items[0], axis=0)
+    elif name == "wide_chunk":
+        wide[0, 1] = res["chunk_rows"]
+    elif name == "total_missing":
+        items[:, 9] = 0
+
+
+@pytest.mark.parametrize("name", ["stream", "past_stream", "levels",
+                                  "too_many_vregs", "row_twice",
+                                  "row_missing", "wide_chunk",
+                                  "total_missing"])
+def test_to_device_refuses_bad_schedule(name):
+    """A schedule or wide-row table that reads outside the plan, writes a
+    y2 row twice or never, or leaves a total a long scalar reads
+    uncomputed is refused before upload, as the fold table was."""
+    csr, _ = _wide_long_csr()
+    meta, arrays = cb.plan_to_arrays(dt.build_wplan(csr))
+    resident.prepare(meta, arrays)
+    res = arrays.pop("resident")
+    streams = cb.arrays_to_device(meta, arrays, "cpu")["streams"]
+    resident.to_device(meta, res, streams, "cpu")      # as prepared: fine
+    bad = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+           for k, v in res.items()}
+    _corrupt(name, bad, meta)
+    with pytest.raises(ValueError):
+        resident.to_device(meta, bad, streams, "cpu")
+
+
+def test_resident_loop_refuses_cpu_stamps():
+    """The phase clock exists only in the kernel: stamps with a CPU x, or
+    on the CPU, raise; the plain version takes none."""
+    rng = np.random.default_rng(0)
+    csr = tsp.mixed_categories(300, rng)
+    op = dt.SpMVOperator(csr, device="cpu")
+    x2d = op._prep_x(rng.standard_normal(csr.n_cols))
+    stamps = torch.zeros(resident.STAMP_WORDS, dtype=torch.int64)
+    with pytest.raises(ValueError, match="stamps"):
+        resident.resident_loop(op._meta, op._arrays, x2d, 1, stamps=stamps)
+    with pytest.raises(TypeError):
+        resident.resident_loop_plain(op._meta, op._arrays, x2d, 1,
+                                     stamps=stamps)
