@@ -14,10 +14,13 @@ Phases, one or more printed lines each, every one raising on failure:
      (native/, make);
   3. kernels vs plain on the card, on the fixture every row family passes
      through (mixed_categories(2048), as __graft_entry__.entry() packs it):
-     every kernel instance (K1 f32 and bf16, K3, K2, K4, K5 at kv=4 with
-     f32, bf16 and f64 values) against its plain version on the same
-     tensors, each K5 slice against K1 / K3 on its own x, and K6 in f32,
-     bf16 and f64 at 1 and 3 steps, all bit for bit;
+     every kernel instance (K1 f32 and bf16, K3, K2, K4, K5 at kv = 1, 2,
+     4 and 8 with f32, bf16 and f64 values) against its plain version on
+     the same tensors, each K5 slice against K1 / K3 on its own x, each
+     vector of the batched outgather against outgather_plain on its y2,
+     and K6 in f32, bf16 and f64 at 1 and 3 steps, all bit for bit; the
+     registers, local bytes, shared bytes and blocks a SM of every K5
+     instance are printed after the build;
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16, and matmat
@@ -27,8 +30,11 @@ Phases, one or more printed lines each, every one raising on failure:
      the f64 CSR golden (for bf16 that of the bf16-rounded A and x),
      scaled by the backward-error mass max(|A||x|, 1), and the resident y
      against the streamed y; every kernel instance's launch count over
-     this phase must be non-zero; then every instance against its plain
-     version at these shapes;
+     this phase must be non-zero, and one matmat call must launch K5 once
+     per stream and pass (the residue sub-plan's streams included, checked
+     on a fixture whose residue is repacked) and K1/K3 not at all; then
+     every instance against its plain version at these shapes (K5 at kv =
+     4 and 8);
   5. timing with CUDA events (median of trials), each step issued eagerly
      and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop
      on the streamed operators: every step adds y[0]*1e-36 into x) in f32,
@@ -39,11 +45,16 @@ Phases, one or more printed lines each, every one raising on failure:
      chain of 100 (a [phase] line per arm and dtype: phases A, C and
      D+tap per step, their sum against the graphed step, the grid
      barriers a step, the grid and blocks per SM); matmat at 8 columns
-     (two K5 passes of 4) against 8 single SpMVs and cuSPARSE A @ X, in
-     f32 and f64; every kernel instance alone (ALONE_REPS launches
+     (two K5 passes of 4, and one pass of 8) against 8 single SpMVs and
+     cuSPARSE A @ X, per call and per column, in f32, f64 and bf16, with
+     the device kernels one pass and one SpMV launch (the port's and the
+     glue's, from the profiler); every kernel instance alone (ALONE_REPS launches
      captured in one graph, so that the host's replay cost does not
      show) beside its plain version, with the bytes it must move and its
-     bound; a torch.profiler breakdown of the f32 and f64 streamed kernel
+     bound; the outgather of one pass as one launch and as one launch a
+     vector; the K5 split (K5 alone at kv = 1, 2, 4, 8 as it is and with
+     every gather sent to one fixed row of its table, K1/K3 beside them);
+     a torch.profiler breakdown of the f32 and f64 streamed kernel
      paths; and the T4 sweep (the rate of a chained re-read of a 6-192 MB
      stream against the copy rate);
   6. the probes T1 (gather_bench: copy, shared-memory and L2 gathers),
@@ -209,17 +220,26 @@ def kernel_args(op, xs):
     """The tensors each kernel instance of ``op``'s dtype takes for one
     SpMV of xs[0] (K1/K3 per stream, K2/K4 on the resulting y2) and one
     SpMM pass of the stacked xs (K5 per stream, kv = len(xs))."""
-    import torch
     from dasp_tpu_torch.ops import cuda_backend as cb
     from dasp_tpu_torch.ops.colsum import colsum
     meta, arrays = op._meta, op._arrays
     cs = [(st["wins"], st["vals"], st["idx"], xs[0], s)
           for (_, s, _), st in zip(meta.streams, arrays["streams"])]
     y2, _ = cb.stack_y2(meta, arrays, [colsum(*a) for a in cs], xs[0])
-    x3d = torch.cat(xs)
+    x3d = multi_x(xs)
     cm = [(st["wins"], st["vals"], st["idx"], x3d, s, len(xs))
           for (_, s, _), st in zip(meta.streams, arrays["streams"])]
     return cs, (arrays["out_src"], arrays["out_perm"], y2), cm
+
+
+def pass_y2(op, cm):
+    """The (kv, rows, 128) y2 of one SpMM pass, from K5's arguments."""
+    from dasp_tpu_torch.ops import cuda_backend as cb
+    from dasp_tpu_torch.ops.colsum_multi import colsum_multi
+    kv = cm[0][5]
+    y2, _ = cb.stack_y2(op._meta, op._arrays, [colsum_multi(*a) for a in cm],
+                        cm[0][3].view(kv, -1, 128))
+    return y2
 
 
 def compare_kernels(op, xs):
@@ -250,6 +270,14 @@ def compare_kernels(op, xs):
     ogd = "f64" if d == "f64" else "f32"
     err[inst("outgather", ogd)] = list(scaled_err(
         outgather(*og, op._meta.n_y2_rows), outgather_plain(*og)))
+    # the pass's one outgather launch: vector j as outgather_plain on its
+    # y2
+    y2 = pass_y2(op, cm)
+    batch = outgather(og[0], og[1], y2, op._meta.n_y2_rows)
+    for j in range(len(xs)):
+        if not torch.equal(batch[j], outgather_plain(og[0], og[1], y2[j])):
+            raise AssertionError(f"batched outgather vector {j} != "
+                                 f"outgather_plain on its y2 ({d})")
     bad = {k: v for k, v in err.items() if not v[0] <= KERNEL_TOL[d]}
     if bad:
         raise AssertionError(f"kernel vs plain ({d}): {bad} "
@@ -345,6 +373,84 @@ def phase_split(op, x2d, n):
     return dict(zip(STAMPS, stamps.tolist()))
 
 
+def multi_x(tabs):
+    """K5's x table of the x tables ``tabs``: stacked, (kv*S, 128)."""
+    import torch
+    return torch.cat(tabs)
+
+
+def fixed_row(st):
+    """A stream's tables with every gather sent to row 0 of its x table,
+    at the slot's own lane (q = 0, round 0, window offset 0): the stream
+    and the chain of dependent loads as they are, without the spread of
+    the gathers over the table."""
+    import torch
+    return dict(wins=torch.zeros_like(st["wins"]), vals=st["vals"],
+                idx=st["idx"] & 127)
+
+
+def k5_split(op, tabs, name, card):
+    """What holds K5 back: K5 alone at kv = 1, 2, 4, 8 over every stream
+    of ``op`` as it is and with every gather sent to one fixed row, and K1
+    (K3 in f64) on the same streams beside them; ALONE_REPS launches per
+    graph, us per pass.  Returns {(variant, kv or "K1"): us}."""
+    from dasp_tpu_torch.ops.colsum import colsum
+    from dasp_tpu_torch.ops.colsum_multi import KV_SIZES, colsum_multi
+    strides = [s for _, s, _ in op._meta.streams]
+    variants = {"as is": op._arrays["streams"],
+                "fixed row": [fixed_row(st) for st in op._arrays["streams"]]}
+    us = {}
+
+    def alone(step):
+        return time_ms(graphed(step, ALONE_REPS), 5) / ALONE_REPS * 1e3
+
+    for label, sts in variants.items():
+        us[label, "K1"] = alone(lambda: [
+            colsum(st["wins"], st["vals"], st["idx"], tabs[0], s)
+            for st, s in zip(sts, strides)])
+        for kv in KV_SIZES:
+            x = multi_x(tabs[:kv])
+            us[label, kv] = alone(lambda: [
+                colsum_multi(st["wins"], st["vals"], st["idx"], x, s, kv)
+                for st, s in zip(sts, strides)])
+    k1 = inst("colsum", op.dtype)
+    for label in variants:
+        log(f"[time] K5 split {name} {op.dtype}, gathers {label}, us per "
+            f"pass over every stream (graph replay): {k1} "
+            f"{us[label, 'K1']:.1f}; " + "; ".join(
+                f"K5 kv={kv} {us[label, kv]:.1f} ({us[label, kv] / kv:.1f} "
+                f"a vector)" for kv in KV_SIZES) + f" [{card}]")
+    return us
+
+
+def kernel_counts(step):
+    """Device kernels one call of ``step`` launches, by the profiler:
+    (the port's own kernels, every other kernel: the glue's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    own = glue = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and not e.key.startswith("aten::"):
+            if any(k in e.key for k in ("colsum", "outgather", "resident")):
+                own += e.count
+            else:
+                glue += e.count
+    return own, glue
+
+
+def n_streams(meta):
+    """Streams of a plan and of its residue sub-plans."""
+    return len(meta.streams) + (n_streams(meta.res) if meta.res else 0)
+
+
 def compare_probes(dev):
     """T1-T3 at the tools' sizes: every variant against its plain version
     on the same card tensors, and the T2/T3 variants that compute K1's
@@ -410,14 +516,15 @@ def main():
     from dasp_tpu_torch.bench.suite import build_suite
     from dasp_tpu_torch.ops import _build, cuda_backend as cb
     from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
-    from dasp_tpu_torch.ops.colsum_multi import colsum_multi, \
-        colsum_multi_plain
+    from dasp_tpu_torch.ops.colsum_multi import KV_SIZES, colsum_multi, \
+        colsum_multi_plain, kernel_info
     from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
     from dasp_tpu_torch.ops.resident import resident_loop, \
         resident_loop_plain
     from dasp_tpu_torch.probes import gather_bench as t1, \
         roundcost_ab as t2, resident_probe as t4, stream_bench2 as t3
-    from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories
+    from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories, \
+        random_csr
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -446,6 +553,14 @@ def main():
         f"source, {len(_build.SIGNATURES)} entry points: "
         f"{time.perf_counter() - t:.2f} s -> "
         f"{os.path.relpath(_build.build(), here)}")
+    for name in colsum_multi.launches:
+        log(f"[build] K5 {inst('colsum_multi', name)} registers / local "
+            f"(stack and spill) bytes a thread / shared bytes a block / "
+            f"blocks a SM: " + "; ".join(
+                f"stride {s} kv {kv}: {i['registers']} / {i['local_bytes']} "
+                f"/ {i['shared_bytes']} / {i['blocks_per_sm']}"
+                for s in (2, 4, 8) for kv in KV_SIZES
+                for i in [kernel_info(name, s, kv)]))
     # the host library (Matrix Market parser, window router) that the
     # packer loads from native/.  Built here with g++ named explicitly:
     # an exported CXX without OpenMP support fails the Makefile's build,
@@ -467,10 +582,10 @@ def main():
         for k, (_, a) in errs.items():
             err[k] = max(err[k], a)
 
-    def rand_tables(op, seed):
+    def rand_tables(op, seed, n=cb.KV_SPMM):
         rng = np.random.default_rng(seed)
         return [op._prep_x(rng.standard_normal(op.n_cols))
-                for _ in range(cb.KV_SPMM)]
+                for _ in range(n)]
 
     t = time.perf_counter()
     csr = mixed_categories(2048, np.random.default_rng(7))
@@ -479,6 +594,10 @@ def main():
         op = dt.SpMVOperator(plan, dtype=d, device=dev)
         errs = compare_kernels(op, rand_tables(op, 3))
         note(errs)
+        for kv in KV_SIZES:
+            if kv != cb.KV_SPMM:
+                e5 = compare_kernels(op, rand_tables(op, 3, kv))
+                note({k: v for k, v in e5.items() if "multi" in k})
         if not op.resident:
             raise AssertionError(f"entry fixture {d} is not resident")
         e = compare_resident(op, rand_tables(op, 4)[0])
@@ -491,7 +610,9 @@ def main():
             f"k_used={op._meta.k_used}: " + ", ".join(
                 f"{k} {s:.3e} scaled ({a:.3e} abs)"
                 for k, (s, a) in errs.items())
-            + f", limit {KERNEL_TOL[d]}; K5 slices == K1/K3 bit for bit")
+            + f", limit {KERNEL_TOL[d]}; K5 slices == K1/K3 bit for bit at "
+            f"kv = {list(KV_SIZES)}, the batched outgather == "
+            f"outgather_plain per vector")
     log(f"[kernels] entry fixture done in {time.perf_counter() - t:.2f} s")
 
     # -- 4. the slice end to end at real size --------------------------------
@@ -539,6 +660,21 @@ def main():
             size=(csr.n_rows, csr.n_cols),
             check_invariants=False).to(dev), vdt
 
+    def matmat_counted(op, X):
+        """(op.matmat(X), K5 launches, K1/K3 launches of that call): one
+        K5 launch per stream, of the plan and of its residue sub-plans,
+        for each pass of KV_SPMM columns, and no single-vector colsum."""
+        d = op.dtype
+        n5, n1 = colsum_multi.launches[d], colsum.launches[d]
+        Y = op.matmat(X)
+        n5, n1 = colsum_multi.launches[d] - n5, colsum.launches[d] - n1
+        passes = -(-X.shape[1] // cb.KV_SPMM)
+        if (n5, n1) != (passes * n_streams(op._meta), 0):
+            raise AssertionError(
+                f"matmat {d}: {n5} K5 and {n1} K1/K3 launches, expected "
+                f"{passes} x {n_streams(op._meta)} and 0")
+        return Y, n5, n1
+
     ops, rops, xs = {}, {}, {}
     counters = (("colsum", colsum), ("colsum_multi", colsum_multi),
                 ("outgather", outgather), ("resident", resident_loop))
@@ -573,14 +709,16 @@ def main():
                 f"B_pad={m.B_pad} n_long={m.n_long} "
                 f"residue={m.overflow_meta} sub_plan={m.res is not None}")
             t = time.perf_counter()
-            Y = op.matmat(X)
+            Y, n5, n1 = matmat_counted(op, X)
             run = time.perf_counter() - t
             es = [check(name, f"{d} matmat column {j}", Y[:, j],
                         *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
                   for j in range(K_COLS)]
             log(f"[e2e] {name} {d} matmat {K_COLS} columns (kv "
                 f"{cb.KV_SPMM}): worst column err {max(es):.3e} "
-                f"(mass-scaled, limit {E2E_TOL[d]}); first call {run:.3f} s")
+                f"(mass-scaled, limit {E2E_TOL[d]}); first call {run:.3f} s;"
+                f" launches of the call: K5 {n5}, K1/K3 {n1} "
+                f"({n_streams(m)} streams with the sub-plan's)")
             ops[name, d] = op
             # the resident executor: a default operator's timing loop
             t = time.perf_counter()
@@ -610,14 +748,45 @@ def main():
     log(f"[e2e] kernel launches in this phase: {launches}")
     if set(launches) != set(MAIN_PATH) or not all(launches.values()):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    # a plan whose residue is repacked as a sub-plan (RES_REPACK_MIN = 1):
+    # matmat runs the sub-plan's streams through K5 too
+    t = time.perf_counter()
+    repack, cb.RES_REPACK_MIN = cb.RES_REPACK_MIN, 1
+    try:
+        rng = np.random.default_rng(0)
+        sub = random_csr(40_000, 40_000, rng.integers(1, 8, size=40_000),
+                         rng)
+        sub_plan = dt.build_wplan(sub)
+        Xs = rng.standard_normal((sub.n_cols, 5))
+        for d in DTYPES:
+            op = dt.SpMVOperator(sub_plan, dtype=d, device=dev,
+                                 force_streamed=True)
+            if op._meta.res is None:
+                raise AssertionError("the residue was not repacked")
+            Y, n5, n1 = matmat_counted(op, Xs)
+            es = [check("sub-plan fixture", f"{d} matmat column {j}",
+                        Y[:, j], *golden_mass(sub, Xs[:, j], d), d,
+                        (sub.n_rows,)) for j in range(Xs.shape[1])]
+            log(f"[e2e] sub-plan fixture {sub.n_rows}x{sub.n_cols} "
+                f"nnz={sub.nnz} {d} matmat 5 columns: worst column err "
+                f"{max(es):.3e} (mass-scaled, limit {E2E_TOL[d]}); "
+                f"streams={list(op._meta.streams)} + sub-plan "
+                f"{list(op._meta.res.streams)}; launches of the call: K5 "
+                f"{n5}, K1/K3 {n1}")
+    finally:
+        cb.RES_REPACK_MIN = repack
+    log(f"[e2e] sub-plan fixture done in {time.perf_counter() - t:.2f} s")
     for (name, d), op in ops.items():
         t = time.perf_counter()
         errs = compare_kernels(op, rand_tables(op, 5))
         note(errs)
+        note({k: v for k, v in compare_kernels(
+            op, rand_tables(op, 5, 4)).items() if "multi" in k})
         log(f"[kernels] {name} {d}: " + ", ".join(
             f"{k} {s:.3e} scaled ({a:.3e} abs)"
             for k, (s, a) in errs.items())
-            + f", limit {KERNEL_TOL[d]}; {time.perf_counter() - t:.2f} s")
+            + f", limit {KERNEL_TOL[d]}; K5 also at kv = 4; "
+            f"{time.perf_counter() - t:.2f} s")
     for (name, d), rop in rops.items():
         x2d = rop._prep_x(xs[name])
         e = compare_resident(rop, x2d)
@@ -629,7 +798,7 @@ def main():
     # "eager": each step issued from Python as the operator runs it;
     # "graph": the same step captured once in a CUDA graph and replayed,
     # which removes the host's launch cost and leaves the device time
-    alone = {}
+    alone, pass_lib = {}, {}
     for name, csr in suite:
         t = time.perf_counter()
         x = xs[name]
@@ -718,35 +887,57 @@ def main():
                     *bound(call_b, CHAIN * flops, d),
                     lib * CHAIN if lib else None)
 
-        # matmat at K_COLS columns: two K5 passes of KV_SPMM against
-        # K_COLS single SpMVs and cuSPARSE A @ X, on the same X (no chain)
+        # matmat at K_COLS columns: two K5 passes of 4 and one pass of 8
+        # against K_COLS single SpMVs and cuSPARSE A @ X, on the same X (no
+        # chain), per call and per column
         rng = np.random.default_rng(2)
         X = rng.standard_normal((csr.n_cols, K_COLS))
-        for d in ("f32", "f64"):
+        for d in DTYPES:
             op = ops[name, d]
             meta, arrays = op._meta, op._arrays
             tabs = [op._prep_x(X[:, j]) for j in range(K_COLS)]
-            x3ds = [torch.cat(tabs[c:c + cb.KV_SPMM])
-                    for c in range(0, K_COLS, cb.KV_SPMM)]
-            A, vdt = cusparse_matrix(csr, d)
-            Xd = torch.from_numpy(X).to(vdt).to(dev)
-            Yc = (A @ Xd).cpu().numpy()
-            for j in range(K_COLS):
-                check(name, f"cuSPARSE {d} A @ X column {j}", Yc[:, j],
-                      *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
+            passes = [multi_x(tabs[c:c + 4]) for c in range(0, K_COLS, 4)]
             steps = {
-                "matmat (K5)": lambda x3ds=x3ds, m=meta, a=arrays: [
-                    cb.spmm_fn(m, a, x3, cb.KV_SPMM) for x3 in x3ds],
+                "matmat (K5, kv 4)":
+                    lambda ps=passes, m=meta, a=arrays: [
+                        cb.spmm_fn(m, a, x, 4) for x in ps],
+                f"matmat (K5, kv {K_COLS})":
+                    lambda x=multi_x(tabs), m=meta, a=arrays:
+                        cb.spmm_fn(m, a, x, K_COLS),
                 f"{K_COLS} x SpMV": lambda tabs=tabs, m=meta, a=arrays: [
                     cb.spmv_fn(m, a, x2) for x2 in tabs],
-                "cuSPARSE A @ X": lambda A=A, Xd=Xd: A @ Xd,
             }
+            if d != "bf16":
+                A, vdt = cusparse_matrix(csr, d)
+                Xd = torch.from_numpy(X).to(vdt).to(dev)
+                Yc = (A @ Xd).cpu().numpy()
+                for j in range(K_COLS):
+                    check(name, f"cuSPARSE {d} A @ X column {j}", Yc[:, j],
+                          *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
+                steps["cuSPARSE A @ X"] = lambda A=A, Xd=Xd: A @ Xd
+                # a pass's yardstick: one library call for its columns
+                lib_cols = {n: time_ms(graphed(
+                    lambda A=A, Xn=Xd[:, :n].contiguous(): A @ Xn), 5)
+                    for n in sorted({4, cb.KV_SPMM})}
+                pass_lib[name, d] = lib_cols[cb.KV_SPMM]
             row = {k: eager_and_graph(s, 5) for k, s in steps.items()}
-            log(f"[time] {name} {d} matmat {K_COLS} columns, per call: "
-                + ", ".join(f"{k} eager {e * 1e3:.1f} us / graph "
-                            f"{g * 1e3:.1f} us ({K_COLS * flops / (g * 1e6):.2f}"
-                            f" GFLOP/s graphed)"
-                            for k, (e, g) in row.items()) + f" [{card}]")
+            log(f"[time] {name} {d} matmat {K_COLS} columns, per call (per "
+                f"column): " + ", ".join(
+                    f"{k} eager {e * 1e3:.1f} ({e * 1e3 / K_COLS:.1f}) us / "
+                    f"graph {g * 1e3:.1f} ({g * 1e3 / K_COLS:.1f}) us "
+                    f"({K_COLS * flops / (g * 1e6):.2f} GFLOP/s graphed)"
+                    for k, (e, g) in row.items())
+                + ("".join(f"; cuSPARSE A @ X[:, :{n}] graph {v * 1e3:.1f} us"
+                           for n, v in lib_cols.items())
+                   if d != "bf16" else "")
+                + f" [{card}]")
+            own, glue = kernel_counts(lambda x=passes[0], m=meta, a=arrays:
+                                      cb.spmm_fn(m, a, x, 4))
+            own1, glue1 = kernel_counts(lambda x=tabs[0], m=meta, a=arrays:
+                                        cb.spmv_fn(m, a, x))
+            log(f"[profile] {name} {d} device kernels of one spmm_fn pass of "
+                f"4 vectors: {own} of the port's (K5, K2/K4) + "
+                f"{glue} of the glue; of one spmv_fn: {own1} + {glue1}")
 
         # every kernel instance alone at this matrix's shapes (one SpMV's
         # worth: every stream's colsum, the outgather on its y2; one K5
@@ -794,7 +985,27 @@ def main():
                     f"{work[base][0] / 1e6:.2f} MB, bound {b_ms * 1e3:.1f} us "
                     f"({b_by}) at {PEAK_BYTES / 1e12} TB/s [{card}]")
                 if name == "cop20k_like":
-                    alone[k] = (*got, b_ms, b_by, None)
+                    # K5's library column: the pass's yardstick (one
+                    # cuSPARSE call for its KV_SPMM columns), not K5's alone
+                    alone[k] = (*got, b_ms, b_by,
+                                pass_lib.get((name, d))
+                                if base == "colsum_multi" else None)
+            if d != "bf16":
+                # the pass's outgather: one launch over the kv vectors
+                # against one launch a vector
+                y2 = pass_y2(op, cm)
+                Z = op._meta.n_y2_rows
+                one, each = (
+                    time_ms(graphed(step, ALONE_REPS), 5) / ALONE_REPS * 1e3
+                    for step in (
+                        lambda: outgather(og[0], og[1], y2, Z),
+                        lambda: [outgather(og[0], og[1], y2[j], Z)
+                                 for j in range(y2.shape[0])]))
+                log(f"[time] {inst('outgather', d)} of one pass of "
+                    f"{y2.shape[0]} vectors at {name} shapes (graph replay):"
+                    f" one launch {one:.1f} us, one launch a vector "
+                    f"{each:.1f} us [{card}]")
+            k5_split(op, rand_tables(op, 11, max(KV_SIZES)), name, card)
         log(f"[time] {name} done in {time.perf_counter() - t:.2f} s")
 
     # -- T4: the L2 question, on its own launch count ------------------------

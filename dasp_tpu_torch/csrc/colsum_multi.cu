@@ -1,104 +1,192 @@
 // colsum_multi (K5): the colsum of K1/K3 against kv stacked x tables, for
-// SpMM (Y = A X, X with kv columns at a time).
+// SpMM (Y = A X, kv columns of X per pass).
 //
 // Replaces dasp_tpu/ops/pallas_backend.py:_make_colsum_multi (:174-249).
-// x3d is (kv*S, 128): table j (column j of X, as an x2d table) starts at
-// row j*S, and the windows in wins are row offsets WITHIN one table, so
-// slot (i, lam) of vreg v gathers x3d[j*S + wins[v, 1+c] + q, lam] for
-// every j (q and c read at the cell (i, lam), as in colsum.cu).  The
-// output is (kv, NV*R, 128): slice j is exactly what K1 (or K3) computes
-// on table j.
+// x3d is (kv*S, 128): table k (column k of X, as an x2d table) starts at
+// row k*S, and the windows in wins are row offsets WITHIN one table, so
+// slot (i, lam) of vreg v gathers x3d[k*S + wins[v, 1+c] + q, lam] for
+// every k (q and c read at the cell (i, lam), as in colsum.cu).  Each A
+// tile is read once for the kv vectors, and the output is (kv, NV*R, 128):
+// slice k is exactly what K1 (K3 in fp64) computes on table k.
 //
 // Instances (value type / x, sum and output type), kv in {1, 2, 4, 8}:
 //   dasp_colsum_multi_f32   float          / float
 //   dasp_colsum_multi_bf16  __nv_bfloat16  / float
 //   dasp_colsum_multi_f64   double         / double
-// The reference's fp64 SpMM tier (spmm_fn_dd, :1043) runs this kernel
-// twice in f32 on hi/lo cross products; Hopper has fp64, so one fp64 pass
+// The reference's fp64 SpMM tier (spmm_fn_dd, :1043) runs its kernel twice
+// in f32 on hi/lo cross products; Hopper has fp64, so one fp64 pass
 // replaces it, without that tier's 2^-24-of-row-mass error.
 //
-// Shape on Hopper: K1's (one block of 128 x VPB threads, VPB vregs, thread
-// j owns lane column j, the idx tile staged in shared memory for the cell
-// lookup).  Each thread loads its slot's value and idx word ONCE and
-// resolves the slot's x row once, then takes the kv products; the kv*R
-// level sums stay in registers (kv and stride are template parameters: at
-// most 8 x 4 doubles).  The products and adds run in K1's order with
-// rounded mul/add, so slice j equals K1 (K3) on table j bit for bit.
+// What bounds it on this card.  In bytes, the A stream (value + 2 B of idx
+// a slot) read once per kv vectors and the kv output slices (0.8 / 2.5 us
+// a vector at the copy rate on cop20k_like / webbase_like in f32).  The
+// first design (K1's shape: a block of 4 vregs that exits, kv * R sums in
+// registers) ran at 0.45-0.52 of that bound on cop20k_like.
+// chip_smoke.py's split of it (K5 at kv = 1, 2, 4, 8, as it is and with
+// every gather sent to one fixed row of its table, K1 beside them) showed
+// that each further vector cost 3.3-4.2 us in f32 wherever its gathers
+// landed, and probes/k5_levers.py that with the x gathers sent past the L1
+// (ld.global.cg) a pass is 1.3-2.7x slower: the gathers are served by the
+// L1, and the kernel is bound by what the SM's load path (L1 and shared
+// memory share it) can serve, and by the dependent loads in front of each
+// gather.  What this design does about it (each figure from
+// probes/k5_levers.py on an NVIDIA H100 80GB HBM3, 700 W, a pass over the
+// streams of cop20k_like and webbase_like at kv = 4 and 8):
+//   - small blocks and little shared memory: one vreg per block (128
+//     threads, 8-12 blocks a SM), 4 KB of shared memory a block, so the L1
+//     keeps the x windows (blocks of 4 vregs: up to 16 % slower, of 8: up
+//     to 33 %); the values are loaded straight from device memory (staged
+//     through shared memory too: 4-14 % slower at kv = 4, up to 27 % at
+//     kv = 8);
+//   - a persistent grid: as many blocks as are co-resident, each walking
+//     every gridDim.x-th vreg, with the NEXT vreg's idx tile and wins row
+//     on their way into shared memory (cp.async) while the block computes
+//     the current one, so the cell lookup and the window offset, the two
+//     loads in front of every gather, come from shared memory (without it:
+//     3-13 % slower in f32 and bf16 at kv = 4, within 2 % in fp64 and at
+//     kv = 8);
+//   - the gathers of up to 8 sublanes (32 words a thread) are issued
+//     before the first product (16 words: within 3 %);
+//   - a level's kv sums live in kv registers and are stored when the level
+//     ends (128 consecutive words: coalesced, each word written once), so
+//     the kernel holds kv sums, not kv * R.
+// Tried and left out: x interleaved by vector as (S, 128, kv) with one
+// vector load a slot (within 4 % at kv = 4; at kv = 8 9-20 % slower on
+// cop20k_like and 0-5 % faster on webbase_like); a contiguous share of the
+// vregs per block (0-19 % slower); streaming loads (ld.global.cs) of the
+// values (up to 11 % faster on cop20k_like, up to 10 % slower on
+// webbase_like).
+// The products and adds run in K1's order with rounded mul/add (each
+// level starts from zero and adds its sublanes in order), so slice k
+// equals K1 (K3) on table k bit for bit.
 //
-// Bound: bytes.  The A stream (value + 2 B idx per slot) is read once per
-// kv vectors instead of once per vector, so its bytes per vector fall by
-// kv x; the kv x gathers per slot hit L2 (kv tables of 0.5 MB f32 / 1 MB
-// f64 at cop20k_like), and the output (kv x K1's) is written once.
+// Traps handled: P is a runtime argument, at most MAX_P (the packer's
+// cap); pad vregs give zero rows; an unsupported kv, stride or P is
+// refused with cudaErrorInvalidValue.  idx must be 16-byte aligned (the
+// wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "colsum_common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int VPB = 4;          // vregs per block (512 threads)
+constexpr int MAX_P = 32;       // windows of a vreg (the packer's cap)
+constexpr int MIN_BLOCKS = 8;   // blocks a SM the compiler must allow (at
+                                // most 64 registers a thread)
+constexpr int FLIGHT = 32;      // words of x gathers in flight a thread
+constexpr int MAX_DEV = 16;     // devices whose grid size is cached
+
+// The idx tile and wins row of one vreg, staged into shared memory by
+// cp.async while the block computes the vreg before it.
+struct alignas(16) Stage {
+  int16_t tile[SUB][LANES];
+  int32_t wins[MAX_P + 1];
+};
+
+// Start the copies of vreg v into `st`; every thread commits one group of
+// copies, so that the pending counts of all threads stay in step.
+__device__ __forceinline__ void stage_vreg(Stage& st,
+                                           const int32_t* __restrict__ wins,
+                                           const int16_t* __restrict__ idx,
+                                           int64_t v, int P, int j) {
+  cp_async16(&st.tile[0][0] + 8 * j, idx + v * SUB * LANES + 8 * j);
+  if (j <= P) cp_async4(&st.wins[j], wins + v * (P + 1) + j);
+  cp_async_commit();
+}
+
+// One vreg: lane column j of every level of every slice.  `vals` points at
+// the vreg's values, `out` at (row v*R, lane j) of slice 0; `table` and
+// `slice` are the words of one x table and of one output slice.
+template <typename V, typename A, int STRIDE, int KV>
+__device__ __forceinline__ void colsum_multi_vreg(
+    const int16_t (*tile)[LANES], const int32_t* w, int P,
+    const V* __restrict__ vals, const A* __restrict__ x3d, int64_t table,
+    A* __restrict__ out, int64_t slice, int j) {
+  constexpr int XW = KV * (int)sizeof(A) / 4;        // words a slot gathers
+  constexpr int G = FLIGHT / XW < SUB ? FLIGHT / XW : SUB;
+  A acc[KV];
+#pragma unroll
+  for (int i0 = 0; i0 < SUB; i0 += G) {
+    A xv[G][KV];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int lam = (int)tile[i0 + u][j] & 127;
+      const A* xp = x3d + x_row(tile[i0 + u], lam, w, P) * LANES + lam;
+#pragma unroll
+      for (int k = 0; k < KV; ++k) xv[u][k] = xp[k * table];
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int i = i0 + u;
+      const A a = widen(vals[i * LANES + j]);
+#pragma unroll
+      for (int k = 0; k < KV; ++k) {
+        const A p = mul_rn(a, xv[u][k]);
+        acc[k] = add_rn(i % STRIDE == 0 ? A(0) : acc[k], p);
+      }
+      if (i % STRIDE == STRIDE - 1) {
+#pragma unroll
+        for (int k = 0; k < KV; ++k)
+          out[k * slice + (i / STRIDE) * LANES] = acc[k];
+      }
+    }
+  }
+}
 
 template <typename V, typename A, int STRIDE, int KV>
-__global__ void __launch_bounds__(LANES * VPB)
+__global__ void __launch_bounds__(LANES, MIN_BLOCKS)
 colsum_multi_kernel(const int32_t* __restrict__ wins,
                     const V* __restrict__ vals,
                     const int16_t* __restrict__ idx,
                     const A* __restrict__ x3d, A* __restrict__ out, int nv,
-                    int P, int S) {
+                    int P, int64_t table) {
   constexpr int R = SUB / STRIDE;
-  __shared__ int16_t tile[VPB][SUB][LANES];
+  __shared__ Stage stage[2];
   const int j = threadIdx.x;
-  const int t = threadIdx.y;
-  const int64_t v = (int64_t)blockIdx.x * VPB + t;
-  const bool live = v < nv;
-  const int64_t base = v * SUB * LANES;
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < SUB; ++i) tile[t][i][j] = idx[base + i * LANES + j];
-  }
-  __syncthreads();
-  if (!live) return;
-
-  const int32_t* w = wins + v * (P + 1) + 1;
-  const int64_t table = (int64_t)S * LANES;      // words per x table
-  A acc[KV][R];
-#pragma unroll
-  for (int k = 0; k < KV; ++k) {
-#pragma unroll
-    for (int L = 0; L < R; ++L) acc[k][L] = A(0);
-  }
-#pragma unroll
-  for (int i = 0; i < SUB; ++i) {
-    const int lam = (int)tile[t][i][j] & 127;
-    const A* xp = x3d + x_row(tile[t][i], lam, w, P) * LANES + lam;
-    const A a = widen(vals[base + i * LANES + j]);
-#pragma unroll
-    for (int k = 0; k < KV; ++k) {
-      acc[k][i / STRIDE] = add_rn(acc[k][i / STRIDE],
-                                  mul_rn(a, xp[k * table]));
+  const int64_t slice = (int64_t)nv * R * LANES;
+  int buf = 0;
+  // two vregs in flight: vreg v is computed from its staged tile and wins
+  // row while those of v + gridDim.x are copied in (the grid is at most nv)
+  stage_vreg(stage[buf], wins, idx, blockIdx.x, P, j);
+  for (int64_t v = blockIdx.x; v < nv; v += gridDim.x) {
+    if (v + gridDim.x < nv) {
+      stage_vreg(stage[buf ^ 1], wins, idx, v + gridDim.x, P, j);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
-  const int64_t rows = (int64_t)nv * R;          // rows per output slice
-#pragma unroll
-  for (int k = 0; k < KV; ++k) {
-    A* o = out + (k * rows + v * R) * LANES + j;
-#pragma unroll
-    for (int L = 0; L < R; ++L) o[L * LANES] = acc[k][L];
+    __syncthreads();
+    colsum_multi_vreg<V, A, STRIDE, KV>(
+        stage[buf].tile, &stage[buf].wins[1], P, vals + v * SUB * LANES, x3d,
+        table, out + v * R * LANES + j, slice, j);
+    __syncthreads();              // stage[buf] is refilled two vregs on
+    buf ^= 1;
   }
 }
 
 template <typename V, typename A, int STRIDE>
-void launch_kv(int kv, dim3 grid, dim3 block, cudaStream_t s,
-               const int32_t* w, const V* a, const int16_t* ix, const A* x,
-               A* o, int nv, int P, int S) {
+const void* kernel_kv(int kv) {
   switch (kv) {
-    case 1: colsum_multi_kernel<V, A, STRIDE, 1><<<grid, block, 0, s>>>(w, a, ix, x, o, nv, P, S); break;
-    case 2: colsum_multi_kernel<V, A, STRIDE, 2><<<grid, block, 0, s>>>(w, a, ix, x, o, nv, P, S); break;
-    case 4: colsum_multi_kernel<V, A, STRIDE, 4><<<grid, block, 0, s>>>(w, a, ix, x, o, nv, P, S); break;
-    case 8: colsum_multi_kernel<V, A, STRIDE, 8><<<grid, block, 0, s>>>(w, a, ix, x, o, nv, P, S); break;
+    case 1: return (const void*)colsum_multi_kernel<V, A, STRIDE, 1>;
+    case 2: return (const void*)colsum_multi_kernel<V, A, STRIDE, 2>;
+    case 4: return (const void*)colsum_multi_kernel<V, A, STRIDE, 4>;
+    case 8: return (const void*)colsum_multi_kernel<V, A, STRIDE, 8>;
   }
+  return nullptr;
+}
+
+template <typename V, typename A>
+const void* kernel_of(int stride, int kv) {
+  switch (stride) {
+    case 2: return kernel_kv<V, A, 2>(kv);
+    case 4: return kernel_kv<V, A, 4>(kv);
+    case 8: return kernel_kv<V, A, 8>(kv);
+  }
+  return nullptr;
 }
 
 template <typename V, typename A>
@@ -106,27 +194,62 @@ int launch(const void* wins, const void* vals, const void* idx,
            const void* x3d, void* out, int nv, int P, int stride, int S,
            int kv, void* stream) {
   if (nv <= 0) return 0;
-  if (kv != 1 && kv != 2 && kv != 4 && kv != 8) {
-    return (int)cudaErrorInvalidValue;
+  const void* f = kernel_of<V, A>(stride, kv);
+  if (!f || P < 1 || P > MAX_P) return (int)cudaErrorInvalidValue;
+  // the co-resident blocks of each instance, asked once per device
+  static int resident[MAX_DEV][4][4];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
+  int& cap = resident[dev][stride / 4 + (stride == 8)][kv / 2 - (kv == 8)];
+  if (cap == 0) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, LANES, 0);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    cap = per_sm * sms;
   }
-  const dim3 block(LANES, VPB);
-  const dim3 grid((nv + VPB - 1) / VPB);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto w = static_cast<const int32_t*>(wins);
-  auto a = static_cast<const V*>(vals);
-  auto ix = static_cast<const int16_t*>(idx);
-  auto x = static_cast<const A*>(x3d);
-  auto o = static_cast<A*>(out);
-  switch (stride) {
-    case 2: launch_kv<V, A, 2>(kv, grid, block, s, w, a, ix, x, o, nv, P, S); break;
-    case 4: launch_kv<V, A, 4>(kv, grid, block, s, w, a, ix, x, o, nv, P, S); break;
-    case 8: launch_kv<V, A, 8>(kv, grid, block, s, w, a, ix, x, o, nv, P, S); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int64_t table = (int64_t)S * LANES;            // words per x table
+  void* args[] = {&wins, &vals, &idx, &x3d, &out, &nv, &P, &table};
+  e = cudaLaunchKernel(f, dim3(nv < cap ? nv : cap), dim3(LANES), args, 0,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// registers a thread, local (stack and spill) bytes a thread, shared bytes
+// a block and co-resident blocks a SM of one instance
+template <typename V, typename A>
+int info(int stride, int kv, int* out) {
+  const void* f = kernel_of<V, A>(stride, kv);
+  if (!f) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, LANES, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = per_sm;
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int dasp_colsum_multi_info(int dtype, int stride, int kv,
+                                      int* out) {
+  switch (dtype) {
+    case 0: return info<float, float>(stride, kv, out);
+    case 1: return info<__nv_bfloat16, float>(stride, kv, out);
+    case 2: return info<double, double>(stride, kv, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int dasp_colsum_multi_f32(const void* wins, const void* vals,
                                      const void* idx, const void* x3d,

@@ -19,6 +19,10 @@
 // nothing), which saves its y2 and perm reads just as the range split
 // did.  So og_src/og_perm are not used on the device.
 //
+// Batch: an SpMM pass gathers the y2 of its kv vectors through the same
+// src and perm, so the launcher takes (nb, rows, 128) and runs the batch
+// as the grid's second dimension over the same body: one launch a pass.
+//
 // Bound on this card: latency, not bytes.  Per output word the kernel
 // must move one 4 B (8 B fp64) store and, per used slot, a 1 B perm read
 // and one y2 gather (y2 of cop20k_like is ~1.4 MB f32: it stays in L2):
@@ -44,27 +48,33 @@ namespace {
 
 constexpr int WPB = 8;          // output blocks per CUDA block
 
+// blockIdx.y names the vector of a batch: y2 is (nb, rows, 128) and out
+// (nb, B, 128), src and perm are shared by the batch (nb = 1: one SpMV).
 template <typename T>
 __global__ void __launch_bounds__(og_threads<T>() * WPB)
 outgather_kernel(const int32_t* __restrict__ src,
                  const int8_t* __restrict__ perm,
                  const T* __restrict__ y2, T* __restrict__ out,
-                 int B, int K, int zero_row) {
+                 int B, int K, int zero_row, int64_t y2_words) {
   const int64_t b = (int64_t)blockIdx.x * WPB + threadIdx.y;
   if (b >= B) return;
-  outgather_block<T>(src, perm, y2, out, b, B, K, zero_row, threadIdx.x);
+  outgather_block<T>(src, perm, y2 + blockIdx.y * y2_words,
+                     out + blockIdx.y * (int64_t)B * OG_LANES, b, B, K,
+                     zero_row, threadIdx.x);
 }
 
 template <typename T>
 int launch(const void* src, const void* perm, const void* y2, void* out,
-           int B, int K, int zero_row, void* stream) {
-  if (B <= 0) return 0;
-  if (K > OG_KMAX) return (int)cudaErrorInvalidValue;
+           int B, int K, int zero_row, int nb, long long y2_words,
+           void* stream) {
+  if (B <= 0 || nb <= 0) return 0;
+  if (K > OG_KMAX || nb > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(og_threads<T>(), WPB);
-  const dim3 grid((B + WPB - 1) / WPB);
+  const dim3 grid((B + WPB - 1) / WPB, nb);
   outgather_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src), static_cast<const int8_t*>(perm),
-      static_cast<const T*>(y2), static_cast<T*>(out), B, K, zero_row);
+      static_cast<const T*>(y2), static_cast<T*>(out), B, K, zero_row,
+      (int64_t)y2_words);
   return (int)cudaGetLastError();
 }
 
@@ -72,12 +82,16 @@ int launch(const void* src, const void* perm, const void* y2, void* out,
 
 extern "C" int dasp_outgather_f32(const void* src, const void* perm,
                                   const void* y2, void* out, int B, int K,
-                                  int zero_row, void* stream) {
-  return launch<float>(src, perm, y2, out, B, K, zero_row, stream);
+                                  int zero_row, int nb, long long y2_words,
+                                  void* stream) {
+  return launch<float>(src, perm, y2, out, B, K, zero_row, nb, y2_words,
+                       stream);
 }
 
 extern "C" int dasp_outgather_f64(const void* src, const void* perm,
                                   const void* y2, void* out, int B, int K,
-                                  int zero_row, void* stream) {
-  return launch<double>(src, perm, y2, out, B, K, zero_row, stream);
+                                  int zero_row, int nb, long long y2_words,
+                                  void* stream) {
+  return launch<double>(src, perm, y2, out, B, K, zero_row, nb, y2_words,
+                        stream);
 }

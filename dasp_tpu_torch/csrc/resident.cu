@@ -89,6 +89,7 @@
 #include <stdint.h>
 
 #include "colsum_common.cuh"
+#include "cp_async.cuh"
 #include "outgather_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -185,24 +186,6 @@ struct alignas(16) Stage {
   int32_t wins[VPB][MAX_P + 1];
   int32_t item[NITEM];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Start the copies of item g into `st`; every thread commits one group, so
 // that the groups of all threads stay in step.

@@ -41,7 +41,7 @@ _D = ctypes.c_double
 # 64-bit address is never cut to a 32-bit int)
 _COLSUM = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _COLSUM_MULTI = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-_OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _P)
+_OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P)
 _RESIDENT = (_P, _P, _I, _P, _I, _P,    # desc, items, n_items, wide, n_wide,
                                         # cbuf
              _P, _P, _P, _I, _I,        # inc_ptr, inc_tot, inc_mult,
@@ -63,7 +63,9 @@ SIGNATURES = {
     "dasp_colsum_multi_f32": _COLSUM_MULTI,
     "dasp_colsum_multi_bf16": _COLSUM_MULTI,
     "dasp_colsum_multi_f64": _COLSUM_MULTI,
-    # src, perm, y2, out, B, K, zero_row, stream
+    # value type (0 f32, 1 bf16, 2 f64), stride, kv, int[4] out
+    "dasp_colsum_multi_info": (_I, _I, _I, _P),
+    # src, perm, y2, out, B, K, zero_row, batch, y2 words a vector, stream
     "dasp_outgather_f32": _OUTGATHER,
     "dasp_outgather_f64": _OUTGATHER,
     # K6, one cooperative launch for `iters` chained SpMVs (ops/resident.py)

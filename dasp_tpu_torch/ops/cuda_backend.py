@@ -12,7 +12,9 @@ The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
   ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
   outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
 * ``spmm_fn`` runs one multi-vector colsum launch per stream (K5,
-  ``ops/colsum_multi.py``) for kv vectors, then the glue per vector.
+  ``ops/colsum_multi.py``) for kv vectors, then the same glue once, the
+  vector as a batch dimension, and one outgather launch; ``spmv_fn`` is
+  its one-vector case on K1/K3.
 * ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474), on the
   CUDA card unless the caller names another device: ``__call__``,
   ``matmat``, and ``timing_loop``, which runs the resident executor (K6,
@@ -42,7 +44,7 @@ from ..sparse import CSRMatrix
 from ..utils import gc_paused
 from ..wplan import WPlan, SUB, LANES, LONG_PACK, K_SOURCES, build_wplan
 from .colsum import colsum, colsum_plain
-from .colsum_multi import colsum_multi, colsum_multi_plain
+from .colsum_multi import KV_SIZES, colsum_multi, colsum_multi_plain
 from .outgather import outgather, outgather_plain
 
 DTYPES = ("f32", "bf16", "f64")
@@ -62,11 +64,15 @@ OB = 64          # outgather block alignment of B_pad (pallas_backend.py:48)
 RES_REPACK_MIN = 16384
 RES_MAX_DEPTH = 3
 
-# x vectors per multi-vector colsum launch (SpMM), for every dtype
-# (pallas_backend.py:163).  The reference halves kv until the stacked x
-# tables fit VMEM (SPMM_X_VMEM_BYTES); here they live in device memory,
-# so kv is a constant.
-KV_SPMM = 4
+# Most x vectors per multi-vector colsum launch (SpMM), for every dtype.
+# The reference runs 4 (pallas_backend.py:163) and halves kv until the
+# stacked x tables fit VMEM (SPMM_X_VMEM_BYTES); here they live in device
+# memory.  A pass runs its glue once whatever its kv, and the glue, not K5,
+# sets a pass's time, so 8 columns in one pass of 8 cost 0.60-0.70 of two
+# passes of 4 per column in f32, f64 and bf16 on both suite arms of
+# chip_smoke.py (an NVIDIA H100 80GB HBM3, PERF.md); ``matmat`` takes a
+# smaller kv for a short last pass.
+KV_SPMM = 8
 
 # timing_loop's feedback: each chained step adds y[0] * TAP into x, so no
 # step can be skipped or hoisted and x stays numerically unchanged
@@ -354,13 +360,19 @@ def prep_x(meta: WMeta, x, col_perm=None) -> np.ndarray:
     and float32 otherwise (bf16 plans take an f32 x, as the reference's);
     ``col_perm`` (plan.col_perm, old->new) scatters x into relabeled
     column order."""
+    return prep_x_multi(meta, np.asarray(x)[:, None], 1, col_perm)
+
+
+def prep_x_multi(meta: WMeta, X, kv: int, col_perm=None) -> np.ndarray:
+    """Host-side: the columns of X (n_cols, <= kv) as K5's stacked
+    (kv*s_rows,128) x tables, table j the padded (and, with ``col_perm``,
+    relabeled) column j; tables past X's columns are zero."""
     dt = np.float64 if meta.dtype == "f64" else np.float32
-    xp = np.zeros(meta.s_rows * LANES, dtype=dt)
-    if col_perm is not None:
-        xp[col_perm] = np.asarray(x, dtype=dt)[:meta.n_cols]
-    else:
-        xp[:meta.n_cols] = np.asarray(x, dtype=dt)[:meta.n_cols]
-    return xp.reshape(meta.s_rows, LANES)
+    X = np.asarray(X)
+    xp = np.zeros((kv, meta.s_rows * LANES), dtype=dt)
+    cols = slice(0, meta.n_cols) if col_perm is None else col_perm
+    xp[:X.shape[1], cols] = X[:meta.n_cols].T
+    return xp.reshape(kv * meta.s_rows, LANES)
 
 
 # ---------------------------------------------------------------------------
@@ -514,8 +526,12 @@ def spmv_fn(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
     """x2d (s_rows,128) (f64 for f64 plans, f32 otherwise) -> y (n_rows,)
     in the plan's row order: f32, bf16 or f64 by the plan's dtype.
     ``plain`` runs the kernels' plain PyTorch versions on any device (the
-    smoke's comparison path); otherwise the wrappers pick by device."""
-    return _narrow(meta, _spmv_wide(meta, arrays, x2d, plain))
+    smoke's comparison path); otherwise the wrappers pick by device.
+    This is the one-vector case of the glue ``spmm_fn`` runs: one colsum
+    per stream (K1 for f32/bf16 values, K3 for f64), then ``_assemble_y``
+    on the (1, rows, 128) partials."""
+    return _narrow(meta, _wide(meta, arrays, x2d.unsqueeze(0), plain,
+                               multi=False)[0])
 
 
 def _narrow(meta: WMeta, y: torch.Tensor) -> torch.Tensor:
@@ -524,16 +540,27 @@ def _narrow(meta: WMeta, y: torch.Tensor) -> torch.Tensor:
     return y.to(torch.bfloat16) if meta.dtype == "bf16" else y
 
 
-def _spmv_wide(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
-               plain: bool) -> torch.Tensor:
-    """The SpMV in the glue's dtype (f32 for f32 and bf16, f64 for f64):
-    one colsum per stream (K1 for f32/bf16 values, K3 for f64), then the
-    glue and the outgather."""
-    cs = colsum_plain if plain else colsum
-    partials = [cs(st["wins"], st["vals"], st["idx"], x2d, stride)
-                for (_, stride, _), st in zip(meta.streams,
-                                              arrays["streams"])]
-    return _assemble_y(meta, arrays, partials, x2d, plain)
+def _wide(meta: WMeta, arrays: Dict, xb: torch.Tensor, plain: bool,
+          multi: bool) -> torch.Tensor:
+    """xb (kv,s_rows,128), the x tables of kv vectors -> y (kv, n_rows) in
+    the glue's dtype (f32 for f32 and bf16, f64 for f64): one colsum
+    launch per stream for all kv vectors, then the glue and the outgather
+    once.  ``multi`` picks the colsum: K5 (any kv), or K1/K3 on the one
+    table of a kv = 1 call."""
+    kv = xb.shape[0]
+    if multi:
+        cm = colsum_multi_plain if plain else colsum_multi
+        x3d = xb.view(-1, LANES)
+        partials = [cm(st["wins"], st["vals"], st["idx"], x3d, stride, kv)
+                    for (_, stride, _), st in zip(meta.streams,
+                                                  arrays["streams"])]
+    else:
+        cs = colsum_plain if plain else colsum
+        partials = [cs(st["wins"], st["vals"], st["idx"], xb[0],
+                       stride).unsqueeze(0)
+                    for (_, stride, _), st in zip(meta.streams,
+                                                  arrays["streams"])]
+    return _assemble_y(meta, arrays, partials, xb, plain, multi)
 
 
 def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
@@ -541,29 +568,41 @@ def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
     """Multi-vector SpMV (SpMM, pallas_backend.py:1017-1040): x3d
     (kv*s_rows, 128), kv stacked x tables (f64 for f64 plans, f32
     otherwise) -> y (kv, n_rows) in the plan's row order and output dtype.
+
     One K5 launch per stream reads the A stream once for all kv vectors;
-    the glue and the outgather then run per vector.  For f64 this is one
-    fp64 pass, where the reference runs two f32 cross-product passes
-    (spmm_fn_dd, :1043)."""
-    S = meta.s_rows
-    cm = colsum_multi_plain if plain else colsum_multi
-    multi = [cm(st["wins"], st["vals"], st["idx"], x3d, stride, kv)
-             for (_, stride, _), st in zip(meta.streams, arrays["streams"])]
-    ys = [_assemble_y(meta, arrays, [m[j] for m in multi],
-                      x3d[j * S:(j + 1) * S], plain) for j in range(kv)]
-    return _narrow(meta, torch.stack(ys))
+    then the glue runs ONCE on the (kv, rows, 128) partials, with the
+    vector as a batch dimension, one outgather launch covers the kv
+    vectors, and a residue sub-plan recurses as an SpMM (its streams run
+    through K5 too).  Row j depends on table j alone, and equals
+    ``spmv_fn`` on it.  For f64 this is one fp64 pass, where the reference
+    runs two f32 cross-product passes (spmm_fn_dd, :1043)."""
+    if x3d.shape[0] != kv * meta.s_rows:
+        raise ValueError(f"spmm_fn: x3d has {x3d.shape[0]} rows, kv "
+                         f"{kv} tables of {meta.s_rows} have "
+                         f"{kv * meta.s_rows}")
+    return _narrow(meta, _wide(meta, arrays, x3d.view(kv, -1, LANES), plain,
+                               multi=True))
 
 
-def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
-    """Tensor glue from per-stream partials to the outgather's input
-    (pallas_backend.py:938-990, and :1111-1197 for f64): segment level
-    sums, long-row scalar rows, the zero row (index n_y2_rows), then the
-    residue lane-table rows.  It runs in the partials' dtype, which x2d
-    shares: f32 for f32 and bf16 plans, f64 for f64 (plain fp64 sums in
-    place of the reference's compensated double-double ones).
-    Returns (y2 (R2,128), per-row residue sums or None)."""
-    dt, dev = x2d.dtype, x2d.device
-    zero = torch.zeros(1, dtype=dt, device=dev)
+def stack_y2(meta: WMeta, arrays: Dict, partials, xb: torch.Tensor):
+    """Tensor glue from per-stream partials (kv, rows, 128) to the
+    outgather's input (pallas_backend.py:938-990, and :1111-1197 for
+    f64), the kv vectors of a pass as a leading batch dimension: segment
+    level sums, long-row scalar rows, the zero row (index n_y2_rows), then
+    the residue lane-table rows.  It runs in the partials' dtype, which
+    the x tables xb (kv,s_rows,128) share: f32 for f32 and bf16 plans, f64
+    for f64 (plain fp64 sums in place of the reference's compensated
+    double-double ones).
+    Returns (y2 (kv,R2,128), per-row residue sums (kv, n+1) or None).
+    One vector may come without the batch dimension (partials (rows,128),
+    one (s_rows,128) table) and gets y2 (R2,128) and sums (n+1,) back."""
+    if xb.dim() == 2:
+        y2, rsums = stack_y2(meta, arrays,
+                             [p.unsqueeze(0) for p in partials],
+                             xb.unsqueeze(0))
+        return y2[0], None if rsums is None else rsums[0]
+    dt, dev, kv = xb.dtype, xb.device, xb.shape[0]
+    zero = torch.zeros((kv, 1), dtype=dt, device=dev)
     y2_parts = []
     for stream, off, n_slices, w8, stride in meta.sell_segs:
         # the stream may run at a finer stride than the segment's own
@@ -571,9 +610,9 @@ def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
         R_st = SUB // meta.streams[stream][1]
         R = SUB // stride
         F = R_st // R
-        p = partials[stream][off * R_st:(off + n_slices * w8) * R_st]
-        y2_parts.append(p.reshape(n_slices, w8, R, F, LANES).sum((1, 3))
-                        .reshape(n_slices * R, LANES))
+        p = partials[stream][:, off * R_st:(off + n_slices * w8) * R_st]
+        y2_parts.append(p.reshape(kv, n_slices, w8, R, F, LANES).sum((2, 4))
+                        .reshape(kv, n_slices * R, LANES))
 
     if meta.n_long:
         vreg_totals = {}
@@ -582,56 +621,63 @@ def stack_y2(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor):
             if stream not in vreg_totals:
                 R_st = SUB // meta.streams[stream][1]
                 vreg_totals[stream] = torch.cat(
-                    [partials[stream].reshape(-1, R_st * LANES).sum(1), zero])
-            souts.append(vreg_totals[stream][idxm].sum(1))
-        cat = torch.cat(souts + [zero])
-        scalars = cat[arrays["long_gat"]].sum(1)
+                    [partials[stream].reshape(kv, -1, R_st * LANES).sum(2),
+                     zero], 1)
+            souts.append(vreg_totals[stream][:, idxm].sum(2))
+        cat = torch.cat(souts + [zero], 1)
+        scalars = cat[:, arrays["long_gat"]].sum(2)
         pad = meta.n_long_rows * LONG_PACK - meta.n_long
         srows = torch.nn.functional.pad(scalars, (0, pad)).reshape(
-            meta.n_long_rows, LONG_PACK)
+            kv, meta.n_long_rows, LONG_PACK)
         y2_parts.append(torch.nn.functional.pad(srows, (0, 1)))
 
-    y2_parts.append(torch.zeros((1, LANES), dtype=dt, device=dev))
+    y2_parts.append(torch.zeros((kv, 1, LANES), dtype=dt, device=dev))
 
     rsums = None
     o = arrays["overflow"]
     if o is not None and meta.res is None:
-        rsums = residue_sums(o, x2d)
+        rsums = residue_sums(o, xb)
         if o["lane_table"].shape[0]:
-            y2_parts.append(rsums[o["lane_table"]].reshape(-1, LANES))
-    return torch.cat(y2_parts, 0), rsums
+            y2_parts.append(rsums[:, o["lane_table"]].reshape(kv, -1, LANES))
+    return torch.cat(y2_parts, 1), rsums
 
 
-def residue_sums(o: Dict, x2d: torch.Tensor) -> torch.Tensor:
+def residue_sums(o: Dict, xb: torch.Tensor) -> torch.Tensor:
     """The COO residue's per-row sums (the octave trees, concatenated in
-    tree order) and one zero appended, in x2d's dtype."""
-    zero = x2d.new_zeros(1)
-    pc = torch.cat([o["vals"] * x2d.reshape(-1)[o["cols"]], zero])
-    parts = [pc[t].sum(1) if t.shape[1] > 1 else pc[t[:, 0]]
+    tree order) and one zero appended, for each of the kv vectors of the
+    x tables xb (kv,s_rows,128): (kv, n+1) in xb's dtype; for one
+    (s_rows,128) table, (n+1,)."""
+    if xb.dim() == 2:
+        return residue_sums(o, xb.unsqueeze(0))[0]
+    kv = xb.shape[0]
+    zero = xb.new_zeros((kv, 1))
+    pc = torch.cat([o["vals"] * xb.reshape(kv, -1)[:, o["cols"]], zero], 1)
+    parts = [pc[:, t].sum(2) if t.shape[1] > 1 else pc[:, t[:, 0]]
              for t in o["trees"]]
-    return torch.cat(parts + [zero])
+    return torch.cat(parts + [zero], 1)
 
 
-def _assemble_y(meta: WMeta, arrays: Dict, partials, x2d: torch.Tensor,
-                plain: bool) -> torch.Tensor:
-    """Partials -> y in the glue's dtype (pallas_backend.py:935-1014, and
-    :1107-1227 for f64): y2 stack, outgather (K2, or K4 for f64), then the
+def _assemble_y(meta: WMeta, arrays: Dict, partials, xb: torch.Tensor,
+                plain: bool, multi: bool) -> torch.Tensor:
+    """Partials (kv, rows, 128) per stream -> y (kv, n_rows) in the glue's
+    dtype (pallas_backend.py:935-1014, and :1107-1227 for f64): y2 stack,
+    outgather (K2, or K4 for f64; one launch for the kv vectors), then the
     residue's scatter fallback and sub-plan."""
-    y2, rsums = stack_y2(meta, arrays, partials, x2d)
+    y2, rsums = stack_y2(meta, arrays, partials, xb)
     o = arrays["overflow"]
     if plain:
         out = outgather_plain(arrays["out_src"], arrays["out_perm"], y2)
     else:
         out = outgather(arrays["out_src"], arrays["out_perm"], y2,
                         meta.n_y2_rows)
-    y = out.reshape(-1)[:meta.n_rows]
+    y = out.reshape(y2.shape[0], -1)[:, :meta.n_rows]
 
     if rsums is not None and o["fb_rows"].shape[0]:
-        y = y.index_add(0, o["fb_rows"], rsums[o["fb_pos"]])
+        y = y.index_add(1, o["fb_rows"], rsums[:, o["fb_pos"]])
     if meta.res is not None:
         # the sub-plan's y joins in the glue's dtype, before a bf16 plan's
         # one rounding; the reference rounds it to bf16 first (:1012)
-        y = y + _spmv_wide(meta.res, arrays["res"], x2d, plain)
+        y = y + _wide(meta.res, arrays["res"], xb, plain, multi)
     return y
 
 
@@ -731,18 +777,20 @@ class TorchSpMV:
     def matmat(self, X) -> np.ndarray:
         """Multi-vector SpMV (SpMM): Y = A @ X for X of shape (n_cols, k),
         in original order (PallasSpMV.matmat, :1411-1474).  The k columns
-        run KV_SPMM at a time through ``spmm_fn`` (the last chunk padded
-        with zero tables, whose rows are dropped).  Y is float64 for f64
-        operators and for a float64 X, else X's dtype."""
+        run up to KV_SPMM at a time through ``spmm_fn``: full passes of
+        KV_SPMM, then one pass of the smallest kv the kernel has (1, 2, 4,
+        8) that holds the rest, padded with zero tables whose rows are
+        dropped.  Y is float64 for f64 operators and for a float64 X, else
+        X's dtype."""
         X = np.asarray(X)
         k = X.shape[1]
         cols = []
         for c0 in range(0, k, KV_SPMM):
-            xs = [prep_x(self._meta, X[:, j], self.plan.col_perm)
-                  for j in range(c0, min(c0 + KV_SPMM, k))]
-            xs += [np.zeros_like(xs[0])] * (KV_SPMM - len(xs))
-            x3d = torch.from_numpy(np.concatenate(xs)).to(self.device)
-            cols.append(_to_host(spmm_fn(self._meta, self._arrays, x3d)))
+            kv = min(s for s in KV_SIZES if s >= min(k - c0, KV_SPMM))
+            x3d = torch.from_numpy(prep_x_multi(
+                self._meta, X[:, c0:c0 + kv], kv, self.plan.col_perm)
+            ).to(self.device)
+            cols.append(_to_host(spmm_fn(self._meta, self._arrays, x3d, kv)))
         out = np.concatenate(cols)[:k].T
         dt = (np.float64 if self.dtype == "f64" or X.dtype == np.float64
               else X.dtype)

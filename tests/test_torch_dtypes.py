@@ -204,19 +204,19 @@ def test_bf16_residue_subplan_joins_in_f32(monkeypatch):
     x2d = op._prep_x(x)
     y = op.device_call(x2d)
     assert y.dtype == torch.bfloat16
-    wide = cb._spmv_wide(meta, op._arrays, x2d, False)
+    wide = cb._wide(meta, op._arrays, x2d.unsqueeze(0), False, False)[0]
     assert wide.dtype == torch.float32
     assert torch.equal(y, wide.to(torch.bfloat16))
     # the reference's order: the sub-plan's y rounded to bf16 first
-    orig = cb._spmv_wide
+    orig = cb._wide
 
-    def rounded_sub(m, arrays, xt, plain):
-        ys = orig(m, arrays, xt, plain)
+    def rounded_sub(m, arrays, xt, plain, multi):
+        ys = orig(m, arrays, xt, plain, multi)
         return ys.to(torch.bfloat16).float() if m is meta.res else ys
-    monkeypatch.setattr(cb, "_spmv_wide", rounded_sub)
+    monkeypatch.setattr(cb, "_wide", rounded_sub)
     assert not torch.equal(op.device_call(x2d), y), \
         "fixture no longer tells the two orders apart"
-    monkeypatch.setattr(cb, "_spmv_wide", orig)
+    monkeypatch.setattr(cb, "_wide", orig)
     golden = _golden(csr, x, "bf16")
     scale = np.maximum(np.abs(golden), 1.0)
     np.testing.assert_allclose(op(x) / scale, golden / scale,

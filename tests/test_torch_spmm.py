@@ -1,7 +1,8 @@
 """The port's SpMM: the multi-vector colsum K5 (``colsum_multi``, its plain
 version on the CPU) against the JAX package's ``_make_colsum_multi`` in
 interpret mode, and ``SpMVOperator.matmat`` against ``PallasSpMV.matmat``
-(``force_streamed=True``) and the CSR golden, in f32, bf16 and f64.
+(``force_streamed=True``) and the CSR golden, in f32, bf16 and f64.  The
+batched glue of a pass is held in tests/test_torch_spmm_glue.py.
 
 Tolerances, on the error scaled by max(|ref|, 1):
 - K5 against the reference 1e-6 (f32 and bf16 values): the same f32
@@ -71,7 +72,7 @@ def test_colsum_multi_plain_matches_pallas(name, dtype):
     rng = np.random.default_rng(0)
     csr = KERNEL_CASES[name](rng)
     ref_arrays, meta, arrays = _lowered(csr, dtype)
-    S, kv = meta.s_rows, cb.KV_SPMM
+    S, kv = meta.s_rows, 4
     x3d = rng.standard_normal((kv * S, 128)).astype(np.float32)
     xt = torch.from_numpy(x3d)
     for (P, stride, nv), st, ref_st in zip(meta.streams, arrays["streams"],
@@ -173,8 +174,8 @@ def test_matmat_multivector(dtype):
 
 
 def test_matmat_f64_dd_tier():
-    """tests/test_wplan.py:test_matmat_f64_dd_tier with k=5, which pads
-    the second chunk of KV_SPMM=4 with three zero tables: the port is one
+    """tests/test_wplan.py:test_matmat_f64_dd_tier with k=5, which runs
+    as one pass of kv=8 padded with three zero tables: the port is one
     fp64 pass at 1e-10 against the golden, and within 2e-6 of the
     reference's dd cross-product tier; the padding leaks into no column
     (each equals the single-vector SpMV bit for bit)."""
@@ -232,7 +233,8 @@ def test_relabel_f64_matmat():
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 def test_spmm_fn_equals_spmv_fn(dtype):
     """On the device side, spmm_fn's row j equals spmv_fn on table j bit
-    for bit (K5 slice j is K1/K3 on it, and the glue is the same)."""
+    for bit (K5 slice j is K1/K3 on it, and the glue is the same code with
+    the vector as a batch dimension)."""
     rng = np.random.default_rng(0)
     csr = tsp.mixed_categories(300, rng)
     op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
@@ -242,3 +244,21 @@ def test_spmm_fn_equals_spmv_fn(dtype):
     assert Y.shape == (cb.KV_SPMM, csr.n_rows)
     for j, x2d in enumerate(xs):
         assert torch.equal(Y[j], op.device_call(x2d))
+    with pytest.raises(ValueError, match="kv"):
+        cb.spmm_fn(op._meta, op._arrays, torch.cat(xs), 4)
+
+
+def test_k5_levers_variants_match_the_source():
+    """probes/k5_levers.py builds k5_levers.cu once per variant: every
+    switch a variant sets is one the source reads, with a default, and
+    the shipped variant sets none."""
+    import re
+    from dasp_tpu_torch.probes import k5_levers
+    src = open(k5_levers.SOURCE).read()
+    defaults = dict(re.findall(r"#ifndef (K5_\w+)\n#define \1 (\d+)", src))
+    assert k5_levers.VARIANTS["shipped"] == ()
+    for name, flags in k5_levers.VARIANTS.items():
+        for flag in flags:
+            macro, value = re.fullmatch(r"-D(K5_\w+)=(\d+)", flag).groups()
+            assert macro in defaults, (name, macro)
+            assert value != defaults[macro], f"{name}: {flag} is the default"
