@@ -65,27 +65,45 @@ Phases, one or more printed lines each, every one raising on failure:
      graph replays of the kernel alone and of the tools' chained step, at
      the tools' sizes and at 8x, with the bytes, the share of the copy
      rate and the bound, on the probes' own launch counts.
-It then prints the kernels' JSON line and, last, the device JSON line.
+  7. the bench (python -m dasp_tpu_torch.bench) through its own per-arm
+     runner, run_arm, into a temporary directory: the two plans of phase
+     4, scircuit_like, rmat_like (5,021,410 nnz, whose residue is
+     repacked as a sub-plan at size) in f32, f64 and bf16, and a 262,144 x
+     8,388,608 matrix of ~2.1M nnz whose columns span the whole range
+     (more columns than the reference puts in one plan) in f32 and f64.
+     Every arm passes the bench's checks (streamed y, resident loop y,
+     each matmat column and cuSPARSE against the f64 CSR golden), writes
+     its resident, streamed and SpMM rows under the reference's header,
+     and the summary line parses; the harness's clock and the smoke's
+     must agree within 10 % on one capture of each loop of phase 5, the
+     harness's time per SpMV must lie within 10 % of the smoke's for a
+     resident loop and within 25 % for a streamed one (whose time depends
+     on the capture by 10-16 %); every kernel instance of the path must
+     launch;
+  8. the examples: cg_solve in f32 and fp64 at n = 65,536 and pagerank at
+     n = 100,000 to the originals' thresholds (solution error < 1e-3 f32,
+     < 1e-6 fp64; ranks within 1e-3 of the host power iteration), with the
+     iterations, the ms per iteration with and without the read-back, and
+     the SpMV's share; K1/K3 and K2/K4 must launch.
+Phases 4, 7 and 8 each set the kernels' launch counts to 0 before they
+run and read them after; the kernels line carries phase 4's.  It then
+prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
 
 import json
 import os
 import statistics
-import subprocess
 import sys
+import tempfile
 import time
 
 # kernel vs plain version, on the error scaled by max(|plain|, 1): both
 # multiply the same words and sum in the same order, so they should agree
 # exactly; the limits allow for reordering by the compiler
 KERNEL_TOL = {"f32": 1e-6, "bf16": 1e-6, "f64": 1e-12}
-# end to end, on the error scaled by max(|A||x|, 1): f32 as
-# __graft_entry__.py:63-77; f64 native fp64 sums of up to ~5k terms;
-# bf16 against the golden of the bf16-rounded A and x, where y's own
-# rounding is at most 2^-8 of |y| <= the mass and x stays f32 (within
-# 2^-8 of the rounded x): at most 2^-7 = 7.8e-3 of the mass in all
-E2E_TOL = {"f32": 2e-6, "f64": 1e-10, "bf16": 1e-2}
+# (the end-to-end limits, on the error scaled by max(|A||x|, 1), are the
+# bench's: dasp_tpu_torch/bench/check.py:E2E_TOL)
 DTYPES = ("f32", "f64", "bf16")
 TRIALS = 5
 CHAIN = 10              # SpMVs per timed step (streamed: timing_loop(CHAIN
@@ -167,20 +185,10 @@ def time_ms(step, iters):
 
 
 def graphed(step, reps=1):
-    """Capture ``reps`` calls of ``step`` in one CUDA graph (after warm-up
-    on a side stream, as torch.cuda.graphs asks) and return its replay."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            step()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            step()
-    return g.replay
+    """``reps`` calls of ``step`` captured in one CUDA graph: its replay
+    (the package's own recipe, which the bench and the examples use)."""
+    from dasp_tpu_torch.utils import graphed as capture
+    return capture(step, reps)
 
 
 def eager_and_graph(step, iters):
@@ -499,6 +507,145 @@ def compare_probes(dev):
     return err
 
 
+def huge_columns_matrix(rng, n_rows=262_144, n_cols=8_388_608):
+    """~2.1M nnz over more columns than the reference puts in one plan
+    (its SLAB_COLS is 6,291,456): rows of 1-15 nnz, row i's columns within
+    500 of i * n_cols / n_rows, so the rows span the whole column range
+    (the matrix of tests/test_torch_slabs.py at size)."""
+    import numpy as np
+    from dasp_tpu_torch.sparse import CSRMatrix
+    lens = rng.integers(1, 16, n_rows)
+    rpt = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(lens, out=rpt[1:])
+    nnz = int(rpt[-1])
+    rows = np.repeat(np.arange(n_rows), lens)
+    cols = np.clip(rows * (n_cols // n_rows) + rng.integers(0, 500, nnz),
+                   0, n_cols - 1).astype(np.int32)
+    order = np.lexsort((cols, rows))
+    return CSRMatrix(n_rows, n_cols, rpt, cols[order],
+                     rng.standard_normal(nnz))
+
+
+def bench_phase(dev, arms, card):
+    """The bench's run_arm on ``arms`` [(name, csr, plan, dtypes)] into a
+    temporary directory: every arm must pass its checks, the records must
+    carry the reference's header, a resident and a streamed row per arm
+    and one SpMM row, and the summary line must parse.  Returns
+    {(name, dtype): ArmResult}."""
+    from dasp_tpu_torch.bench.__main__ import ArmInputs, Summary, run_arm
+    from dasp_tpu_torch.bench.record import FIELDS
+    summary = Summary(sum(len(dts) for *_, dts in arms))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, csr, plan, dtypes in arms:
+            inputs = ArmInputs(csr, K_COLS)
+            for d in dtypes:
+                t = time.perf_counter()
+                arm = out[name, d] = run_arm(name, inputs, plan, d, tmp,
+                                             device=dev)
+                if not arm.ok:
+                    raise AssertionError(
+                        f"bench arm {name} {d} failed {arm.failures}: "
+                        f"{arm.errors}")
+                summary.add(name, d, arm)
+                us = {k: r.seconds_per_iter * 1e6
+                      for k, r in arm.results.items()}
+                n = {k: r.timed_iters for k, r in arm.results.items()}
+                log(f"[bench] {name} {d} nnz={csr.nnz}: worst error "
+                    f"{max(arm.errors.values()):.3e} of "
+                    f"{len(arm.errors)} checks; us per SpMV (chain): "
+                    + ", ".join(f"{k} {us[k]:.1f} ({n[k]})" for k in
+                                ("resident", "streamed", "baseline"))
+                    + f"; us per SpMM column of {K_COLS}: spmm "
+                    f"{us['spmm']:.1f}, baseline {us['spmm_baseline']:.1f}; "
+                    f"baseline in {arm.baseline_dtype}; "
+                    f"{time.perf_counter() - t:.2f} s [{card}]")
+        for d in DTYPES:
+            n_arms = sum(d in dts for *_, dts in arms)
+            for kind, variants in (("spmv", ["resident", "streamed"]),
+                                   ("spmm", [f"spmm{K_COLS}"])):
+                with open(os.path.join(tmp, f"{kind}_{d}_record.csv")) as f:
+                    lines = f.read().splitlines()
+                got = [ln.split(",")[FIELDS.index("variant")]
+                       for ln in lines[1:]]
+                if lines[0] != ",".join(FIELDS) or got != variants * n_arms:
+                    raise AssertionError(
+                        f"{kind}_{d}_record.csv: header or variant rows "
+                        f"wrong ({len(lines) - 1} rows: {got})")
+    s = json.loads(summary.line())
+    if not (s["arms_done"] == s["arms_total"] == len(out) and s["value"] > 0
+            and s["vs_baseline"] > 0 and s["metric"] == "spmv_gflops_geomean"):
+        raise AssertionError(f"bench summary line wrong: {summary.line()}")
+    log(f"[bench] records carry the reference's {len(FIELDS)} fields; "
+        f"summary {summary.line()}")
+    return out
+
+
+def examples_phase(dev, card):
+    """cg_solve (f32, fp64) at n = 65,536 and pagerank at n = 100,000 to
+    the originals' thresholds, with their cost per iteration."""
+    import numpy as np
+    import dasp_tpu_torch as dt
+    from dasp_tpu_torch.examples import cg_solver, pagerank
+    shared = dt.DaspConfig(row_sort="off")
+    rng = np.random.default_rng(0)
+    n = 65_536
+    csr = cg_solver.build_spd(n, rng)
+    x_true = rng.standard_normal(n)
+    b = csr.spmv(x_true)
+    plan = dt.build_wplan(csr, shared)
+    for d, limit in (("f32", 1e-3), ("f64", 1e-6)):
+        op = dt.SpMVOperator(plan, dtype=d, device=dev, force_streamed=True)
+        t = time.perf_counter()
+        if d == "f64":
+            x, res, iters = cg_solver.cg_solve_f64(op, b)
+        else:
+            # the default maxiter of 500 ends before f32 converges at
+            # this n (it takes ~1,400 iterations); tol stays the default
+            x, res, iters = cg_solver.cg_solve(op, b.astype(np.float32),
+                                               maxiter=4000)
+        wall = time.perf_counter() - t
+        err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
+        if not (x.shape == (n,) and err < limit):
+            raise AssertionError(f"cg_solve {d}: solution error {err:.3e} "
+                                 f"not under {limit} after {iters} "
+                                 f"iterations (residual {res:.3e})")
+        ms = cg_solver.iteration_costs(op, b, min(iters, 200))
+        log(f"[examples] cg_solve {d} n={n} nnz={csr.nnz}: {iters} "
+            f"iterations, residual {res:.3e}, solution error {err:.3e} "
+            f"(limit {limit}); {wall:.3f} s with the first call's capture; "
+            f"per iteration {ms['synced'] * 1e3:.1f} us with the read-back "
+            f"of rs, {ms['device'] * 1e3:.1f} us chained in one graph "
+            f"without it, the SpMV alone {ms['spmv'] * 1e3:.1f} us "
+            f"({ms['spmv'] / ms['device']:.0%} of the iteration) [{card}]")
+    n, iters = 100_000, 50
+    csr = pagerank.build_transition(n, np.random.default_rng(0))
+    op = dt.SpMVOperator(csr, dtype="f32", config=shared, device=dev,
+                         force_streamed=True)
+    t = time.perf_counter()
+    r = pagerank.pagerank(op, iters=iters)
+    first = time.perf_counter() - t
+    rh = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        rh = 0.85 * csr.spmv(rh) + 0.15 / n
+        rh = rh / rh.sum()
+    rh = 0.85 * csr.spmv(rh) + 0.15 / n
+    err = float(np.abs(r - rh).max() / np.abs(rh).max())
+    if not (r.shape == (n,) and err < 1e-3):
+        raise AssertionError(f"pagerank: rank error {err:.3e} not under "
+                             f"1e-3 of the largest rank")
+    loop_ms = time_ms(op._pagerank_runs[0.85, iters], 5)
+    x2d = op._prep_x(rh)
+    spmv_ms = time_ms(graphed(lambda: op.device_call(x2d), ALONE_REPS),
+                      5) / ALONE_REPS
+    log(f"[examples] pagerank n={n} nnz={csr.nnz}: {iters} iterations, "
+        f"rank error {err:.3e} of the largest rank (limit 1e-3); first "
+        f"call {first:.3f} s (capture); one replay of the whole loop "
+        f"{loop_ms:.3f} ms = {loop_ms / (iters + 1) * 1e3:.1f} us per "
+        f"iteration, the SpMV alone {spmv_ms * 1e3:.1f} us "
+        f"({spmv_ms * (iters + 1) / loop_ms:.0%} of it) [{card}]")
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -513,8 +660,13 @@ def main():
     import numpy as np
     import dasp_tpu_torch as dt
     from dasp_tpu_torch import wplan
+    from dasp_tpu_torch.bench.__main__ import build_native_router, card_line
+    from dasp_tpu_torch.bench.baselines import cusparse_matrix
+    from dasp_tpu_torch.bench.check import E2E_TOL, golden_mass, scaled_error
+    from dasp_tpu_torch.bench.harness import copy_rate_gbs, event_seconds
     from dasp_tpu_torch.bench.suite import build_suite
-    from dasp_tpu_torch.ops import _build, cuda_backend as cb
+    from dasp_tpu_torch.ops import _build, cuda_backend as cb, \
+        kernel_launches as read_counts, zero_kernel_launches as zero_counts
     from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
     from dasp_tpu_torch.ops.colsum_multi import KV_SIZES, colsum_multi, \
         colsum_multi_plain, kernel_info
@@ -523,14 +675,9 @@ def main():
         resident_loop_plain
     from dasp_tpu_torch.probes import gather_bench as t1, \
         roundcost_ab as t2, resident_probe as t4, stream_bench2 as t3
-    from dasp_tpu_torch.sparse import CSRMatrix, mixed_categories, \
-        random_csr
+    from dasp_tpu_torch.sparse import mixed_categories, random_csr
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip()
+    card = card_line()
     log(card)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -539,11 +686,7 @@ def main():
         f"{sys.version.split()[0]}")
 
     # device-memory copy rate: 1 GiB each way, 20x the 50 MB L2
-    src = torch.empty(1 << 28, dtype=torch.float32, device=dev)
-    dst = torch.empty_like(src)
-    copy_gbs = 2 * src.numel() * 4 / (time_ms(lambda: dst.copy_(src), 20)
-                                      * 1e6)
-    del src, dst
+    copy_gbs = copy_rate_gbs(dev)
     log(f"[device] copy {copy_gbs:.0f} GB/s (read + write, 1 GiB)")
 
     # -- 2. build ------------------------------------------------------------
@@ -566,12 +709,7 @@ def main():
     # an exported CXX without OpenMP support fails the Makefile's build,
     # and the numpy fallback packs the webbase_like arm far slower
     t = time.perf_counter()
-    mk = subprocess.run(["make", "-C", os.path.join(here, "native"),
-                         "CXX=g++"], capture_output=True, text=True,
-                        timeout=600)
-    if mk.returncode != 0:
-        raise RuntimeError(f"native host library build failed:\n"
-                           f"{mk.stdout}{mk.stderr}")
+    build_native_router()
     log(f"[build] native host library (make CXX=g++): "
         f"{time.perf_counter() - t:.2f} s")
 
@@ -624,41 +762,14 @@ def main():
     if router != "native":
         raise RuntimeError("the packer did not load native/libdasp_host.so")
 
-    def bf16_round(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(
-            torch.bfloat16).double().numpy()
-
-    def golden_mass(csr, x, dtype):
-        vals = bf16_round(csr.values) if dtype == "bf16" else csr.values
-        x = bf16_round(x) if dtype == "bf16" else x
-        g = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
-                      vals).spmv(x)
-        mass = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
-                         np.abs(vals)).spmv(np.abs(x))
-        return g, np.maximum(mass, 1.0)
-
     def check(name, what, y, golden, scale, dtype, shape):
-        if y.shape != shape or not np.isfinite(y).all():
-            raise AssertionError(f"{name} {what}: y {y.shape} not finite / "
-                                 f"not of shape {shape}")
-        e = float((np.abs(y.astype(np.float64) - golden) / scale).max())
+        e = (scaled_error(y, golden, scale) if y.shape == shape
+             else float("inf"))
         if not e <= E2E_TOL[dtype]:
-            raise AssertionError(f"{name} {what}: error {e:.3e} over the "
-                                 f"limit {E2E_TOL[dtype]} (mass-scaled)")
+            raise AssertionError(f"{name} {what}: y {y.shape} (expected "
+                                 f"{shape}), error {e:.3e} over the limit "
+                                 f"{E2E_TOL[dtype]} (mass-scaled)")
         return e
-
-    def cusparse_matrix(csr, dtype):
-        """(torch CSR matrix on the card for cuSPARSE, its value dtype).
-        The suite's rows may repeat a column (the generators clip and draw
-        with replacement), which torch's CSR invariants reject; the product
-        sums such entries, as the golden does, and is held to it."""
-        vdt = torch.float64 if dtype == "f64" else torch.float32
-        return torch.sparse_csr_tensor(
-            torch.from_numpy(csr.row_ptr.astype(np.int64)),
-            torch.from_numpy(csr.col_idx.astype(np.int64)),
-            torch.from_numpy(csr.values).to(vdt),
-            size=(csr.n_rows, csr.n_cols),
-            check_invariants=False).to(dev), vdt
 
     def matmat_counted(op, X):
         """(op.matmat(X), K5 launches, K1/K3 launches of that call): one
@@ -675,15 +786,14 @@ def main():
                 f"{passes} x {n_streams(op._meta)} and 0")
         return Y, n5, n1
 
-    ops, rops, xs = {}, {}, {}
-    counters = (("colsum", colsum), ("colsum_multi", colsum_multi),
-                ("outgather", outgather), ("resident", resident_loop))
-    for _, counter in counters:
-        counter.launches = dict.fromkeys(counter.launches, 0)
+    ops, rops, xs, plans = {}, {}, {}, {}
+    zero_counts()
     for name, csr in suite:
         t = time.perf_counter()
         plan = dt.build_wplan(csr)
         pack = time.perf_counter() - t
+        plan.stats["pack_seconds"] = pack
+        plans[name] = plan
         rng = np.random.default_rng(1)
         x = rng.standard_normal(csr.n_cols)
         X = rng.standard_normal((csr.n_cols, K_COLS))
@@ -741,10 +851,7 @@ def main():
                 f" incidence entries="
                 f"{rop._arrays['resident']['inc_tot'].numel()}")
             rops[name, d] = rop
-    launches = {}
-    for base, counter in counters:
-        for d, n in counter.launches.items():
-            launches[inst(base, d)] = n
+    launches = read_counts()
     log(f"[e2e] kernel launches in this phase: {launches}")
     if set(launches) != set(MAIN_PATH) or not all(launches.values()):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -799,6 +906,7 @@ def main():
     # "graph": the same step captured once in a CUDA graph and replayed,
     # which removes the host's launch cost and leaves the device time
     alone, pass_lib = {}, {}
+    smoke_loops = {}     # (arm, dtype, variant) -> [ms per SpMV, step, SpMVs]
     for name, csr in suite:
         t = time.perf_counter()
         x = xs[name]
@@ -811,7 +919,7 @@ def main():
                 steps[label] = (lambda loop=op.timing_loop(CHAIN - 1, plain),
                                 x2d=x2d: loop(x2d))
             if d != "bf16":
-                A, vdt = cusparse_matrix(csr, d)
+                A, vdt = cusparse_matrix(csr, d, dev)
                 xv = torch.from_numpy(x).to(vdt).to(dev)
                 golden, scale = golden_mass(csr, x, d)
                 check(name, f"cuSPARSE {d}", (A @ xv).cpu().numpy(), golden,
@@ -828,6 +936,8 @@ def main():
                 e, g = eager_and_graph(step, 2 if label == "plain" else 5)
                 row[f"{label} eager"], row[f"{label} graph"] = (
                     e / CHAIN, g / CHAIN)
+            smoke_loops[name, d, "streamed"] = [row["kernel graph"],
+                                                steps["kernel"], CHAIN]
             log(f"[time] {name} {d} nnz={csr.nnz} per SpMV: " + ", ".join(
                 f"{k} {v * 1e3:.1f} us ({flops / (v * 1e6):.2f} GFLOP/s)"
                 for k, v in row.items()) + f" [{card}]")
@@ -840,10 +950,11 @@ def main():
             x2d = rop._prep_x(x)
             kr = {}
             for n in (CHAIN, LONG_CHAIN):
-                e, g = eager_and_graph(
-                    lambda loop=rop.timing_loop(n), x2d=x2d: loop(x2d),
-                    5 if n == CHAIN else 2)
+                step = lambda loop=rop.timing_loop(n), x2d=x2d: loop(x2d)
+                e, g = eager_and_graph(step, 5 if n == CHAIN else 2)
                 kr[n] = (e / n, g / n)
+            smoke_loops[name, d, "resident"] = [kr[LONG_CHAIN][1], step,
+                                                LONG_CHAIN]
             lib = row.get("cusparse graph")
             log(f"[time] {name} {d} per SpMV, resident K6 (one launch per "
                 f"chain): " + ", ".join(
@@ -908,7 +1019,7 @@ def main():
                     cb.spmv_fn(m, a, x2) for x2 in tabs],
             }
             if d != "bf16":
-                A, vdt = cusparse_matrix(csr, d)
+                A, vdt = cusparse_matrix(csr, d, dev)
                 Xd = torch.from_numpy(X).to(vdt).to(dev)
                 Yc = (A @ Xd).cpu().numpy()
                 for j in range(K_COLS):
@@ -1101,6 +1212,74 @@ def main():
     log(f"[probe] T1-T3 sweeps: launches " + ", ".join(
         f"{k} {launches[k]}" for k in wrappers)
         + f"; {time.perf_counter() - t:.2f} s")
+
+    # -- 7. the bench's arm runner ---------------------------------------------
+    t = time.perf_counter()
+    arms = [(name, csr, plans[name], DTYPES) for name, csr in suite]
+    for name in ("scircuit_like", "rmat_like"):
+        t1 = time.perf_counter()
+        (_, csr), = build_suite([name], seed=0)
+        t2 = time.perf_counter()
+        plan = dt.build_wplan(csr)
+        plan.stats["pack_seconds"] = time.perf_counter() - t2
+        log(f"[bench] {name} {csr.n_rows}x{csr.n_cols} nnz={csr.nnz}: "
+            f"generated in {t2 - t1:.2f} s, packed in "
+            f"{plan.stats['pack_seconds']:.2f} s; residue "
+            f"{plan.overflow.nnz if plan.overflow is not None else 0} nnz")
+        arms.append((name, csr, plan, DTYPES))
+    t2 = time.perf_counter()
+    csr = huge_columns_matrix(np.random.default_rng(5))
+    plan = dt.build_wplan(csr)
+    plan.stats["pack_seconds"] = time.perf_counter() - t2
+    log(f"[bench] huge_columns {csr.n_rows}x{csr.n_cols} nnz={csr.nnz}: "
+        f"generated and packed in {plan.stats['pack_seconds']:.2f} s; "
+        f"s_rows={plan.s_rows}")
+    arms.append(("huge_columns", csr, plan, ("f32", "f64")))
+    zero_counts()
+    bench_arms = bench_phase(dev, arms, card)
+    bench_launches = read_counts()
+    log(f"[bench] kernel launches in this phase: {bench_launches}")
+    if not all(bench_launches.values()):
+        raise AssertionError(f"a kernel of the bench's path never ran: "
+                             f"{bench_launches}")
+    # Two clocks on one loop.  On ONE capture the harness's clock (one
+    # replay between two events) and the smoke's (five) must agree within
+    # 10 %.  Across captures a resident loop, one launch, must too; a
+    # streamed loop's time depends on the capture by 10-16 % (where its
+    # intermediates land in the graph's pool; the harness therefore takes
+    # every trial from a capture of its own), so its harness figure is
+    # held to the nearer of the smoke's two captures within 25 %.
+    for (name, d, variant), (ms, step, spmvs) in smoke_loops.items():
+        theirs = bench_arms[name, d].results[variant].seconds_per_iter * 1e3
+        replay = graphed(step)
+        again = time_ms(replay, 5) / spmvs
+        clock = statistics.median(
+            event_seconds(replay) for _ in range(TRIALS)) * 1e3 / spmvs
+        off = min(abs(theirs / ms - 1.0), abs(theirs / again - 1.0))
+        log(f"[bench] {name} {d} {variant} us per SpMV: the harness "
+            f"{theirs * 1e3:.2f} (median of {TRIALS} captures); the smoke's "
+            f"clock {ms * 1e3:.2f} in phase 5 and {again * 1e3:.2f} on a "
+            f"new capture, which the harness's clock reads as "
+            f"{clock * 1e3:.2f} [{card}]")
+        if (abs(clock / again - 1.0) > 0.10
+                or off > (0.10 if variant == "resident" else 0.25)):
+            raise AssertionError(
+                f"{name} {d} {variant}: the harness and the smoke's clock "
+                f"disagree on one loop (see the line above)")
+    del arms, bench_arms
+    log(f"[bench] done in {time.perf_counter() - t:.2f} s")
+
+    # -- 8. the examples ---------------------------------------------------------
+    t = time.perf_counter()
+    zero_counts()
+    examples_phase(dev, card)
+    ex_launches = read_counts()
+    log(f"[examples] kernel launches in this phase: {ex_launches}")
+    if not all(ex_launches[k] for k in ("colsum", "colsum_f64", "outgather",
+                                        "outgather_f64")):
+        raise AssertionError(f"a kernel of the examples' path never ran: "
+                             f"{ex_launches}")
+    log(f"[examples] done in {time.perf_counter() - t:.2f} s")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",

@@ -6,7 +6,11 @@ its device side is PyTorch tensors.  SpMV runs in f32, bf16 and f64
 (``timing_loop``) in one launch of the resident executor, through kernels
 hand-written in CUDA C++ for Hopper (``csrc/``: colsum, its fp64 and
 multi-vector instances, outgather, the resident executor), which run as
-their plain PyTorch versions on CPU tensors.  It imports no JAX.
+their plain PyTorch versions on CPU tensors.  ``python -m
+dasp_tpu_torch.bench`` benchmarks it against cuSPARSE and writes the
+reference's CSV schema; ``dasp_tpu_torch.examples`` holds the CG and
+PageRank consumers, whose iterations stay on the device.  It imports no
+JAX.
 
 Quick start::
 
@@ -19,6 +23,7 @@ Quick start::
 
 from .config import DaspConfig, DEFAULT_CONFIG
 from .sparse import CSRMatrix, from_coo
+from .analyze import categorize, RowCategories
 from .wplan import WPlan, build_wplan
 from .spmv import SpMVOperator, spmv
 from .io import load_matrix, read_mtx, write_mtx
@@ -42,7 +47,7 @@ def verify(csr: CSRMatrix, y, x, rtol: float = 1e-5) -> bool:
 
 
 __all__ = [
-    "DaspConfig", "DEFAULT_CONFIG", "CSRMatrix", "from_coo", "WPlan",
-    "build_wplan", "SpMVOperator", "spmv", "load_matrix", "read_mtx",
-    "write_mtx", "verify", "__version__",
+    "DaspConfig", "DEFAULT_CONFIG", "CSRMatrix", "from_coo", "categorize",
+    "RowCategories", "WPlan", "build_wplan", "SpMVOperator", "spmv",
+    "load_matrix", "read_mtx", "write_mtx", "verify", "__version__",
 ]

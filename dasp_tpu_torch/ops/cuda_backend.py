@@ -774,23 +774,37 @@ class TorchSpMV:
         for bf16 the bf16 values as float32 (numpy has no bfloat16)."""
         return self.perm_out(_to_host(self.device_call(self._prep_x(x))))
 
+    def _spmm_passes(self, X: np.ndarray):
+        """(x3d on the device, kv) of each pass of ``matmat(X)``, made as
+        it is asked for: full passes of KV_SPMM columns, then one pass of
+        the smallest kv the kernel has (1, 2, 4, 8) that holds the rest,
+        padded with zero tables."""
+        k = X.shape[1]
+        for c0 in range(0, k, KV_SPMM):
+            kv = min(s for s in KV_SIZES if s >= min(k - c0, KV_SPMM))
+            yield torch.from_numpy(prep_x_multi(
+                self._meta, X[:, c0:c0 + kv], kv, self.plan.col_perm)
+            ).to(self.device), kv
+
+    def spmm_loop(self, X):
+        """A callable running the device half of ``matmat(X)`` once, on x
+        tables uploaded here: the (kv, n_rows) y of each pass, in the
+        plan's row order (the bench times it)."""
+        meta, arrays = self._meta, self._arrays
+        passes = list(self._spmm_passes(np.asarray(X)))
+        return lambda: [spmm_fn(meta, arrays, x3d, kv) for x3d, kv in passes]
+
     def matmat(self, X) -> np.ndarray:
         """Multi-vector SpMV (SpMM): Y = A @ X for X of shape (n_cols, k),
         in original order (PallasSpMV.matmat, :1411-1474).  The k columns
-        run up to KV_SPMM at a time through ``spmm_fn``: full passes of
-        KV_SPMM, then one pass of the smallest kv the kernel has (1, 2, 4,
-        8) that holds the rest, padded with zero tables whose rows are
-        dropped.  Y is float64 for f64 operators and for a float64 X, else
-        X's dtype."""
+        run up to KV_SPMM at a time through ``spmm_fn``
+        (``_spmm_passes``); the rows of a short last pass's zero tables
+        are dropped.  Y is float64 for f64 operators and for a float64 X,
+        else X's dtype."""
         X = np.asarray(X)
         k = X.shape[1]
-        cols = []
-        for c0 in range(0, k, KV_SPMM):
-            kv = min(s for s in KV_SIZES if s >= min(k - c0, KV_SPMM))
-            x3d = torch.from_numpy(prep_x_multi(
-                self._meta, X[:, c0:c0 + kv], kv, self.plan.col_perm)
-            ).to(self.device)
-            cols.append(_to_host(spmm_fn(self._meta, self._arrays, x3d, kv)))
+        cols = [_to_host(spmm_fn(self._meta, self._arrays, x3d, kv))
+                for x3d, kv in self._spmm_passes(X)]
         out = np.concatenate(cols)[:k].T
         dt = (np.float64 if self.dtype == "f64" or X.dtype == np.float64
               else X.dtype)

@@ -1,4 +1,4 @@
-"""Shared runtime utilities (numpy-only; the JAX compile-cache helper of
+"""Shared runtime utilities (the JAX compile-cache helper of
 ``dasp_tpu.utils`` has no counterpart here)."""
 
 from __future__ import annotations
@@ -27,3 +27,24 @@ def gc_paused(fn):
             if was:
                 gc.enable()
     return wrapper
+
+
+def graphed(step, reps: int = 1):
+    """Capture ``reps`` calls of ``step`` in one CUDA graph (after warm-up
+    on a side stream, as torch.cuda.graphs asks) and return its replay.
+    The warm-up calls also build the kernels on their first use.  What
+    ``step`` allocates lives in the graph's own pool: a tensor it returned
+    during capture is overwritten by every replay and stays valid while
+    the replay callable is alive."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            step()
+    return g.replay

@@ -28,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # any dasp_tpu module runs dasp_tpu/__init__.py, which imports jax
 COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py",
           "io/__init__.py", "io/mmio.py", "io/native.py",
-          "bench/suite.py", "bench/fem.py"]
+          "bench/suite.py", "bench/fem.py", "bench/record.py",
+          "analyze.py"]
 # the edits a copy carries, one each: bench/fem.py's docstring cites the
 # upstream README by an absolute path of the machine it was written on (the
 # copy cites it as "reference README.md"); wplan.py's long-row packer
@@ -119,6 +120,19 @@ def test_host_module_is_identical_copy(rel):
         ref, n = re.subn(*COPY_EDITS[rel], ref)
         assert n == 1, f"dasp_tpu/{rel}: the edited citation moved"
     assert ours == ref, f"dasp_tpu_torch/{rel} drifted from dasp_tpu/{rel}"
+
+
+def test_categorize_matches_reference():
+    """The row census (analyze.py, exported as in the JAX package) on the
+    fixture every row family passes through."""
+    import dasp_tpu
+    import dasp_tpu_torch
+    csr = tsp.mixed_categories(500, np.random.default_rng(0))
+    ours = dasp_tpu_torch.categorize(csr)
+    ref = dasp_tpu.categorize(_to_ref(csr))
+    assert isinstance(ours, dasp_tpu_torch.RowCategories)
+    _assert_same(ours, ref, "categories")
+    assert ours.census == ref.census
 
 
 def test_gc_paused_is_identical_copy():
@@ -342,6 +356,10 @@ from dasp_tpu_torch.ops import colsum, outgather, cuda_backend  # noqa
 from dasp_tpu_torch.ops import resident  # noqa
 from dasp_tpu_torch.probes import resident_probe  # noqa
 from dasp_tpu_torch.bench import suite, fem  # noqa
+import dasp_tpu_torch.bench as bench
+from dasp_tpu_torch.bench import __main__ as bench_cli  # noqa
+from dasp_tpu_torch import analyze  # noqa
+from dasp_tpu_torch.examples import cg_solver, pagerank  # noqa
 rng = np.random.default_rng(0)
 csr = mixed_categories(300, rng)
 op = dasp_tpu_torch.SpMVOperator(csr, dtype="f32", device="cpu")
@@ -352,6 +370,9 @@ assert err.max() <= 2e-5, err.max()
 y = op.perm_out(op.timing_loop(2)(op._prep_x(x)).numpy())
 err = np.abs(y - golden) / np.maximum(np.abs(golden), 1.0)
 assert op.resident and err.max() <= 2e-5, err.max()
+assert dasp_tpu_torch.categorize(csr).census["row_long"] >= 0
+res = bench.bench_spmv(op, x, "f32", iters=2, trials=2)
+assert res.gflops > 0 and bench.record_from(op.plan, res, "m", "f32")
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("NO_JAX_OK", float(err.max()))
