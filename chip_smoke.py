@@ -85,7 +85,22 @@ Phases, one or more printed lines each, every one raising on failure:
      < 1e-6 fp64; ranks within 1e-3 of the host power iteration), with the
      iterations, the ms per iteration with and without the read-back, and
      the SpMV's share; K1/K3 and K2/K4 must launch.
-Phases 4, 7 and 8 each set the kernels' launch counts to 0 before they
+  9. multi-chip: MultiChipSpMV (dasp_tpu_torch/parallel.py) with 4 chips
+     on the one card, on the reference dry run's input
+     (powerlaw_like(100,000, 1.8, 500,000, col_alpha=1.6), seed 11) in
+     f32 and f64: y against the golden scaled by the mass, balance <=
+     1.5, every chip resident, one call launching exactly the K1/K3 and
+     K2/K4 of every chip's streams and plans and one timing loop one K6
+     per chip, the loop's y against the golden and the streamed y; then
+     the bench's --multichip arm runner (run_multichip_arm) on
+     cop20k_like and wikitalk_like in f32 and f64, each arm checked;
+     every kernel instance of the path must launch; after the counts are
+     read, every chip's K1/K3, K2/K4 and K6 against their plain versions
+     on its own gathered x table, bit for bit; then, in f32 and f64, the
+     4-chip operator's time per SpMV (resident and streamed) beside one
+     operator's on the same matrix, and the all-gather alone.  Four chips
+     on one card show the cost of partitioning, not scaling.
+Phases 4, 7, 8 and 9 each set the kernels' launch counts to 0 before they
 run and read them after; the kernels line carries phase 4's.  It then
 prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
@@ -144,6 +159,7 @@ INSTANCES = {
 PROBES = ("resident_probe", "gather_bench", "roundcost_ab", "stream_bench2")
 MAIN_PATH = tuple(k for k in INSTANCES if k not in PROBES)
 PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
+MC_CHIPS = 4            # chips of the multi-chip phase, all on the one card
 PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
 
 
@@ -644,6 +660,203 @@ def examples_phase(dev, card):
         f"{loop_ms:.3f} ms = {loop_ms / (iters + 1) * 1e3:.1f} us per "
         f"iteration, the SpMV alone {spmv_ms * 1e3:.1f} us "
         f"({spmv_ms * (iters + 1) / loop_ms:.0%} of it) [{card}]")
+
+
+def n_outgathers(meta):
+    """Outgather launches of one streamed SpMV: the plan's and each residue
+    sub-plan's."""
+    return 1 + (n_outgathers(meta.res) if meta.res else 0)
+
+
+def compare_chip(chip, x2d):
+    """One chip's K1/K3 per stream, K2/K4 on the y2 they make and K6 at 1
+    and 3 steps against their plain versions on the chip's own x table,
+    bit for bit."""
+    import torch
+    from dasp_tpu_torch.ops import cuda_backend as cb
+    from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
+    from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
+    meta, arrays = chip._meta, chip._arrays
+    parts = []
+    for (_, s, _), st in zip(meta.streams, arrays["streams"]):
+        a = (st["wins"], st["vals"], st["idx"], x2d, s)
+        parts.append(colsum(*a))
+        if not torch.equal(parts[-1], colsum_plain(*a)):
+            raise AssertionError(f"a chip's colsum ({chip.dtype}, stride "
+                                 f"{s}) differs from its plain version")
+    y2, _ = cb.stack_y2(meta, arrays, parts, x2d)
+    og = (arrays["out_src"], arrays["out_perm"], y2)
+    if not torch.equal(outgather(*og, meta.n_y2_rows), outgather_plain(*og)):
+        raise AssertionError(f"a chip's outgather ({chip.dtype}) differs "
+                             f"from its plain version")
+    compare_resident(chip, x2d)
+
+
+def multichip_phase(dev, card):
+    """Phase 9 (module docstring).  Returns the launch counts of the
+    phase's main path."""
+    import numpy as np
+    import dasp_tpu_torch as dt
+    from dasp_tpu_torch.bench.__main__ import ArmInputs, run_multichip_arm
+    from dasp_tpu_torch.bench.check import E2E_TOL, golden_mass, scaled_error
+    from dasp_tpu_torch.bench.harness import bench_spmv
+    from dasp_tpu_torch.bench.suite import build_suite
+    from dasp_tpu_torch.ops import kernel_launches as read_counts, \
+        zero_kernel_launches as zero_counts
+    from dasp_tpu_torch.parallel import MultiChipSpMV
+    from dasp_tpu_torch.sparse import powerlaw_like
+    devices = [dev] * MC_CHIPS
+    rng = np.random.default_rng(11)
+    csr = powerlaw_like(100_000, 1.8, 500_000, rng, col_alpha=1.6)
+    x = rng.standard_normal(csr.n_cols)
+    t = time.perf_counter()
+    suite = build_suite(["cop20k_like", "wikitalk_like"], seed=0)
+    log(f"[multichip] generated {csr.n_rows}x{csr.n_cols} nnz={csr.nnz} "
+        f"and {[(n, m.nnz) for n, m in suite]} in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def held(what, y, golden, scale, d):
+        e = scaled_error(y, golden, scale)
+        if not e <= E2E_TOL[d]:
+            raise AssertionError(f"multichip {what}: error {e:.3e} over the "
+                                 f"limit {E2E_TOL[d]} (mass-scaled)")
+        return e
+
+    ops = {}
+    zero_counts()
+    for d in ("f32", "f64"):
+        t = time.perf_counter()
+        op = MultiChipSpMV(csr, devices=devices, dtype=d)
+        build = time.perf_counter() - t
+        live = [c for c in op.chips if c is not None]
+        if (len(live) != MC_CHIPS or op.stats["balance"] > 1.5
+                or not op.resident):
+            raise AssertionError(f"multichip {d}: {len(live)} chips with "
+                                 f"rows, stats {op.stats}")
+        golden, scale = golden_mass(csr, x, d)
+        # one call: exactly every chip's K1/K3 per stream and K2/K4 per
+        # plan (residue sub-plans included), nothing else
+        want = {inst("colsum", d): [n_streams(c._meta) for c in live],
+                inst("outgather", d): [n_outgathers(c._meta) for c in live]}
+        before = read_counts()
+        t = time.perf_counter()
+        y = op(x)
+        run = time.perf_counter() - t
+        moved = {k: n - before[k] for k, n in read_counts().items()
+                 if n != before[k]}
+        if moved != {k: sum(v) for k, v in want.items()}:
+            raise AssertionError(f"multichip {d}: one call launched {moved},"
+                                 f" expected {want} (per chip)")
+        e = held(f"{d} y", y, golden, scale, d)
+        before = read_counts()
+        y_loop = op.stitch(op.timing_loop(CHAIN)(op._prep_x(x)))
+        moved = {k: n - before[k] for k, n in read_counts().items()
+                 if n != before[k]}
+        if moved != {inst("resident", d): MC_CHIPS}:
+            raise AssertionError(f"multichip {d}: one timing loop launched "
+                                 f"{moved}, expected one K6 per chip")
+        e_l = held(f"{d} timing_loop({CHAIN})", y_loop, golden, scale, d)
+        e_ls = held(f"{d} loop vs step", y_loop, y, scale, d)
+        log(f"[multichip] powerlaw {csr.n_rows}x{csr.n_cols} nnz={csr.nnz} "
+            f"{d} x{MC_CHIPS} on {dev}: build {build:.2f} s, first call "
+            f"{run:.3f} s; balance {op.stats['balance']:.3f}, slab nnz "
+            f"{op.stats['slab_nnz']}, real vregs {op.stats['real_vregs']}, "
+            f"pad vregs {op.stats['pad_vregs']}, resident "
+            f"{op.stats['resident']}; err {e:.3e}, timing_loop({CHAIN}) "
+            f"(K6 per chip) {e_l:.3e}, vs the step {e_ls:.3e} (mass-scaled,"
+            f" limit {E2E_TOL[d]}); launches of one call, per chip: "
+            f"{want}, of one loop: K6 x{MC_CHIPS}")
+        ops[d] = op
+    arms = {}
+    for name, m in suite:
+        inputs = ArmInputs(m, 0)
+        for d in ("f32", "f64"):
+            t = time.perf_counter()
+            arm, op = run_multichip_arm(name, inputs, d, devices,
+                                        dt.DEFAULT_CONFIG)
+            stats = op.stats
+            if not arm.ok or "resident" not in arm.results:
+                raise AssertionError(f"multichip arm {name} {d} failed "
+                                     f"{arm.failures}: {arm.errors}")
+            r = arm.results["resident"]
+            arms[name, d] = (arm, op)
+            log(f"[multichip] bench arm {name} {d} x{MC_CHIPS}: worst error "
+                f"{max(arm.errors.values()):.3e} of {len(arm.errors)} "
+                f"checks; {r.gflops:.2f} GFLOP/s, "
+                f"{r.seconds_per_iter * 1e6:.2f} us per SpMV (chain "
+                f"{r.timed_iters}, spread {r.spread:.3f}); balance "
+                f"{stats['balance']:.3f}, real vregs {stats['real_vregs']}; "
+                f"{time.perf_counter() - t:.2f} s [{card}]")
+    launches = read_counts()
+    log(f"[multichip] kernel launches in this phase: {launches}")
+    if not all(launches[inst(k, d)] for k in ("colsum", "outgather",
+                                              "resident")
+               for d in ("f32", "f64")):
+        raise AssertionError(f"a kernel of the multi-chip path never ran: "
+                             f"{launches}")
+    t = time.perf_counter()
+    for d, op in ops.items():
+        for chip, x2d in zip(op.chips, op.gather(op._prep_x(x))):
+            compare_chip(chip, x2d)
+    log(f"[multichip] every chip's K1/K3, K2/K4 and K6 (1 and 3 steps) == "
+        f"their plain versions bit for bit, f32 and f64; "
+        f"{time.perf_counter() - t:.2f} s")
+    del ops
+    # 4 chips on ONE card against one operator, in this one call; the
+    # chains start at 10 SpMVs (the harness lengthens them to 2 ms), so
+    # that no streamed capture holds 100 steps of four chips' glue
+    for name, m in suite:
+        t = time.perf_counter()
+        x = ArmInputs(m, 0).x
+        plan = dt.build_wplan(m)
+        # every chip packs with row_sort off, as the reference's chips do
+        unsorted = dt.build_wplan(m, dt.DaspConfig(row_sort="off"))
+        vregs = lambda p: sum(st.n_vregs for st in p.streams)
+        log(f"[multichip] {name} vregs: {MC_CHIPS} chips "
+            f"{sum(arms[name, 'f32'][1].stats['real_vregs'])}, one plan "
+            f"{vregs(plan)}, one plan with row_sort off {vregs(unsorted)}")
+        for d in ("f32", "f64"):
+            ops1 = {v: dt.SpMVOperator(plan, d, device=dev,
+                                       force_streamed=v == "streamed")
+                    for v in ("resident", "streamed")}
+            one = {v: bench_spmv(o, x, d, iters=10) for v, o in ops1.items()}
+            sop = MultiChipSpMV(m, devices=devices, dtype=d,
+                                force_streamed=True)
+            four = {"resident": arms[name, d][0].results["resident"],
+                    "streamed": bench_spmv(sop, x, d, iters=10)}
+            pieces = sop._prep_x(x)
+            gather = time_ms(graphed(lambda: sop.gather(pieces), ALONE_REPS),
+                             5) / ALONE_REPS
+            xb = sop._meta.s_rows * 128 * (8 if d == "f64" else 4)
+            log(f"[multichip] {name} {d} us per SpMV, {MC_CHIPS} chips on "
+                f"ONE card (partitioning's cost, not scaling) against one "
+                f"operator: " + ", ".join(
+                    f"{v} {four[v].seconds_per_iter * 1e6:.2f} vs "
+                    f"{one[v].seconds_per_iter * 1e6:.2f} ("
+                    f"{four[v].seconds_per_iter / one[v].seconds_per_iter:.2f}"
+                    f"x)" for v in ("resident", "streamed"))
+                + f"; the all-gather alone {gather * 1e3:.2f} us a step "
+                f"({MC_CHIPS} x table copies of {xb / 1e6:.2f} MB, graph "
+                f"replay of {ALONE_REPS}) [{card}]")
+            # K6's phase clock, per step over a chain of LONG_CHAIN: the
+            # one operator against each chip
+            mop = arms[name, d][1]
+            split = [phase_split(ops1["resident"],
+                                 ops1["resident"]._prep_x(x), LONG_CHAIN)]
+            split += [phase_split(c, x2d, LONG_CHAIN) for c, x2d in
+                      zip(mop.chips, mop.gather(mop._prep_x(x)))]
+            us = [[ph[k] / LONG_CHAIN / 1e3 for k in ("A", "C", "D")]
+                  for ph in split]
+            log(f"[multichip] {name} {d} K6 phases per step (us, A / C / "
+                f"D+tap): one operator " + " / ".join(
+                    f"{v:.2f}" for v in us[0]) + f"; the {MC_CHIPS} chips "
+                + ", ".join(" / ".join(f"{v:.2f}" for v in u)
+                            for u in us[1:])
+                + f", summed " + " / ".join(
+                    f"{sum(u[i] for u in us[1:]):.2f}" for i in range(3))
+                + f" [{card}]")
+        log(f"[multichip] {name} timed in {time.perf_counter() - t:.2f} s")
+    return launches
 
 
 def main():
@@ -1280,6 +1493,11 @@ def main():
         raise AssertionError(f"a kernel of the examples' path never ran: "
                              f"{ex_launches}")
     log(f"[examples] done in {time.perf_counter() - t:.2f} s")
+
+    # -- 9. multi-chip --------------------------------------------------------
+    t = time.perf_counter()
+    multichip_phase(dev, card)
+    log(f"[multichip] done in {time.perf_counter() - t:.2f} s")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",

@@ -31,6 +31,16 @@ Prints a summary JSON line
 after every arm, and again from a SIGTERM/SIGALRM/SIGINT handler, so a
 kill still leaves a record of everything measured so far.  Arm ordering is
 dtype-major, cheapest nnz first; the last dtype runs most expensive first.
+
+``--multichip [--chips N]`` times the row-partitioned ``MultiChipSpMV``
+(``dasp_tpu_torch/parallel.py``) instead, N chips dealt round-robin over
+the cards: each arm's y and chained loop are checked the same way, a
+``#`` line gives GFLOP/s, us per SpMV, balance, pad vregs and resident,
+the summary's metric is "spmv_multichip_geomean", and no CSV row is
+written.  With fewer than 2 chips it prints the summary with
+``"skipped": true`` and exits 0.  Chips on several cards are timed under
+the host's clock (``harness._runner``); chips sharing one card as one
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -80,7 +90,9 @@ class Summary:
     """Running suite summary, printed after every arm and from the signal
     handlers."""
 
-    def __init__(self, total: int = 0):
+    def __init__(self, total: int = 0,
+                 metric: str = "spmv_gflops_geomean"):
+        self.metric = metric
         self.gflops: List[float] = []
         self.ratios: List[float] = []
         self.done = 0
@@ -103,7 +115,7 @@ class Summary:
 
     def line(self) -> str:
         return json.dumps({
-            "metric": "spmv_gflops_geomean",
+            "metric": self.metric,
             "value": round(geomean(self.gflops), 3),
             "unit": "GFLOP/s",
             "vs_baseline": round(geomean(self.ratios), 3)
@@ -249,6 +261,16 @@ def _profile(op, x, path: str) -> None:
     prof.export_chrome_trace(path)
 
 
+def _failures(name: str, dtype: str, errors: Dict[str, float],
+              limits: Dict[str, float]) -> List[str]:
+    """The checks over their limit, each named on a ``# FAILED`` line."""
+    failures = [k for k, e in errors.items() if not e <= limits[k]]
+    for k in failures:
+        print(f"# FAILED {name} {dtype} {k}: error {errors[k]:.3e} over the "
+              f"limit {limits[k]:g} (scaled by max(|A||x|, 1))", flush=True)
+    return failures
+
+
 def run_arm(name: str, inputs: ArmInputs, plan: WPlan, dtype: str,
             csv_dir: str, *, device="cuda", iters: int = 100,
             trials: int = TRIALS,
@@ -291,10 +313,7 @@ def run_arm(name: str, inputs: ArmInputs, plan: WPlan, dtype: str,
     for j, (g, s) in enumerate(b_cols):
         held(f"baseline matmat column {j}", Yb[:, j], g, s, tol[bdt])
 
-    failures = [k for k, e in errors.items() if not e <= limits[k]]
-    for k in failures:
-        print(f"# FAILED {name} {dtype} {k}: error {errors[k]:.3e} over the "
-              f"limit {limits[k]:g} (scaled by max(|A||x|, 1))", flush=True)
+    failures = _failures(name, dtype, errors, limits)
     results: Dict[str, BenchResult] = {}
     if any(not k.startswith("baseline") for k in failures):
         return ArmResult(errors, failures, results, bdt)
@@ -322,6 +341,76 @@ def run_arm(name: str, inputs: ArmInputs, plan: WPlan, dtype: str,
                     results.get("spmm_baseline"),
                     variant=f"spmm{X.shape[1]}", baseline_dtype=bdt))
     return ArmResult(errors, failures, results, bdt)
+
+
+def multichip_devices(device: torch.device,
+                      chips: Optional[int]) -> List[torch.device]:
+    """``--chips`` chips dealt round-robin over the cards, several chips
+    to a card where there are more chips than cards (the analog of the
+    reference's simulated host devices); on the CPU all on it.  Default:
+    one chip per card, and one on the CPU."""
+    cards = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if device.type == "cuda" else [device])
+    n = len(cards) if chips is None else chips
+    return [cards[i % len(cards)] for i in range(n)]
+
+
+def run_multichip_arm(name: str, inputs: ArmInputs, dtype: str, devices,
+                      config: DaspConfig, *, iters: int = 100,
+                      trials: int = TRIALS):
+    """Check and time one (matrix, dtype) arm of ``--multichip``
+    (bench.py:195-225): ``MultiChipSpMV``'s y and its chained loop's y
+    against the f64 CSR golden and each other (``check.E2E_TOL``), then
+    its timing loop through ``bench_spmv``, the result under "resident"
+    or "streamed" as the operator runs.  An arm that fails a check is not
+    timed.  Returns (the arm, the operator)."""
+    from ..parallel import MultiChipSpMV
+    tol = check.E2E_TOL[dtype]
+    (golden, scale), _ = inputs.goldens(dtype)
+    op = MultiChipSpMV(inputs.csr, devices=devices, dtype=dtype,
+                       config=config)
+    y = op(inputs.x)
+    y_loop = op.stitch(op.timing_loop(CHECK_CHAIN)(op._prep_x(inputs.x)))
+    errors = {"multichip": check.scaled_error(y, golden, scale),
+              "loop": check.scaled_error(y_loop, golden, scale),
+              "loop vs multichip": check.scaled_error(y_loop, y, scale)}
+    failures = _failures(name, dtype, errors, dict.fromkeys(errors, tol))
+    results: Dict[str, BenchResult] = {}
+    if not failures:
+        results["resident" if op.resident else "streamed"] = bench_spmv(
+            op, inputs.x, dtype, iters=iters, trials=trials)
+    return ArmResult(errors, failures, results, dtype), op
+
+
+def run_multichip(args, suite, dtypes: List[str], config: DaspConfig,
+                  devices, iters: int) -> Summary:
+    """``--multichip``: every (matrix, dtype) arm through
+    ``run_multichip_arm``, a ``#`` line each as the reference prints, and
+    the summary line (``spmv_multichip_geomean``) after every arm.  No
+    CSV row is written, as the reference writes none."""
+    summary = Summary(len(suite) * len(dtypes), "spmv_multichip_geomean")
+    restore = install_handlers(summary, args.deadline)
+    try:
+        for dtype in dtypes:
+            for name, csr in suite:
+                arm, op = run_multichip_arm(
+                    name, ArmInputs(csr, 0), dtype, devices, config,
+                    iters=iters)
+                res, stats = summary.add(name, dtype, arm), op.stats
+                if res is not None:
+                    log(f"# {name} {dtype} x{len(devices)}: "
+                        f"{res.gflops:.2f} GFLOP/s "
+                        f"({res.seconds_per_iter * 1e6:.1f} us/iter, "
+                        f"balance {stats['balance']:.2f}, pad "
+                        f"{sum(stats['pad_vregs'])}/"
+                        f"{sum(stats['real_vregs'])} vregs, resident "
+                        f"{stats['resident']}); worst error "
+                        f"{max(arm.errors.values()):.2e}")
+                summary.emit()
+    finally:
+        restore()
+    return summary
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -363,6 +452,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where the arms run (the tests pass cpu)")
     ap.add_argument("--spmm-cols", type=int, default=8,
                     help="columns of the SpMM record's X")
+    ap.add_argument("--multichip", action="store_true",
+                    help="time the row-partitioned MultiChipSpMV instead "
+                         "(checked, no CSV row)")
+    ap.add_argument("--chips", type=int, default=None,
+                    help="--multichip's chips, dealt round-robin over the "
+                         "cards (default: one per card; 1 on the CPU)")
     return ap
 
 
@@ -403,6 +498,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     # Cheapest arms first: a wall-budget kill then costs the least data.
     suite.sort(key=lambda t: t[1].nnz)
 
+    if args.multichip:
+        devices = multichip_devices(device, args.chips)
+        if len(devices) < 2:
+            log(f"# --multichip: {len(devices)} chip, skipping (pass "
+                "--chips N with N >= 2; chips may share a card)")
+            print(json.dumps({"metric": "spmv_multichip_geomean",
+                              "value": 0.0, "unit": "GFLOP/s",
+                              "vs_baseline": 0.0, "skipped": True}),
+                  flush=True)
+            return 0
+        return _finish(run_multichip(args, suite, dtypes, config, devices,
+                                     iters))
+
     summary = Summary(len(suite) * len(dtypes))
     restore = install_handlers(summary, args.deadline)
     try:
@@ -442,6 +550,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 summary.emit()
     finally:
         restore()
+    return _finish(summary)
+
+
+def _finish(summary: Summary) -> int:
+    """The run's launch counts, and exit code 1 if an arm failed."""
     log(f"# kernel launches of this run: {kernel_launches()}")
     if summary.failed:
         print(f"# {len(summary.failed)} arm(s) failed a check: "

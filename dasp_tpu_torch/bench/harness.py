@@ -107,16 +107,26 @@ def _runner(step: Callable[[], object], device) -> Callable[[], float]:
     """``run() -> seconds`` of one execution of ``step`` after an untimed
     one: a CUDA-graph replay between two events on a card
     (``event_seconds``), the call itself under the host's clock on the
-    CPU."""
-    if torch.device(device).type != "cuda":
-        def run_host() -> float:
-            step()
-            t0 = time.perf_counter()
-            step()
-            return time.perf_counter() - t0
-        return run_host
-    replay = graphed(step)
-    return lambda: event_seconds(replay)
+    CPU.  ``device`` may be a tuple of devices (a multi-device operator's
+    chips on several cards): one graph cannot hold the work of several
+    cards, so the eager call is timed under the host's clock between two
+    synchronizations of every card, the host's launch cost included."""
+    devs = [torch.device(d) for d in
+            (device if isinstance(device, tuple) else (device,))]
+    if len(devs) == 1 and devs[0].type == "cuda":
+        replay = graphed(step)
+        return lambda: event_seconds(replay)
+
+    def run_host() -> float:
+        step()
+        for d in devs:
+            _sync(d)
+        t0 = time.perf_counter()
+        step()
+        for d in devs:
+            _sync(d)
+        return time.perf_counter() - t0
+    return run_host
 
 
 def event_seconds(replay: Callable[[], object]) -> float:
@@ -172,13 +182,17 @@ def loop_spmvs(op, n: int) -> int:
 
 def _time_loop_stats(op, x_dev, iters: int = ITERS, trials: int = TRIALS):
     """Seconds per SpMV from the operator's chained timing loop.  Returns
-    ``(seconds_per_iter, spread, n, compile_seconds)``."""
+    ``(seconds_per_iter, spread, n, compile_seconds)``.  A multi-device
+    operator's streamed step runs a chip's SpMV per chip, so its chain is
+    capped by the nodes of all of them."""
     resident = getattr(op, "resident", False)
+    chips = getattr(op, "n_devices", 1)
     cap = (MAX_LOOP_ITERS if resident
-           else MAX_GRAPH_NODES // NODES_PER_STREAMED_SPMV - 1)
+           else MAX_GRAPH_NODES // (NODES_PER_STREAMED_SPMV * chips) - 1)
+    device = op.device if hasattr(op, "device") else x_dev.device
     med, spread, n, setup = time_adaptive(
         lambda k: (lambda loop=op.timing_loop(k): loop(x_dev)),
-        x_dev.device, iters, cap, trials)
+        device, iters, cap, trials)
     return med / loop_spmvs(op, n), spread, n, setup
 
 

@@ -285,6 +285,67 @@ def test_cli_cuda_without_a_card_raises(tiny_mtx, tmp_path):
         cli.main(["--mtx", tiny_mtx, "--csv-dir", str(tmp_path)])
 
 
+def test_cli_multichip_checks_arms_and_writes_no_row(tiny_mtx, tmp_path,
+                                                    capsys):
+    out = tmp_path / "csv"
+    rc = cli.main(["--multichip", "--chips", "4", "--device", "cpu",
+                   "--mtx", tiny_mtx, "--iters", "2", "--csv-dir", str(out),
+                   "--deadline", "0"])
+    assert rc == 0
+    assert not out.exists()
+    cap = capsys.readouterr()
+    lines = cap.out.strip().splitlines()
+    summary = json.loads(lines[-1])
+    assert summary["metric"] == "spmv_multichip_geomean"
+    assert summary["unit"] == "GFLOP/s" and summary["value"] > 0
+    assert summary["arms_done"] == summary["arms_total"] == 3
+    assert sum(ln.startswith('{"metric"') for ln in lines) == 3
+    for dtype in DTYPES:
+        line = next(ln for ln in cap.err.splitlines()
+                    if ln.startswith(f"# tiny.mtx {dtype} x4: "))
+        assert "pad 0/" in line and "resident True" in line
+
+
+def test_cli_multichip_failed_check(tiny_mtx, tmp_path, capsys, monkeypatch):
+    monkeypatch.setitem(check.E2E_TOL, "f32", 0.0)
+    rc = cli.main(["--multichip", "--chips", "3", "--device", "cpu",
+                   "--mtx", tiny_mtx, "--iters", "2", "--deadline", "0",
+                   "--dtypes", "f32,f64", "--csv-dir", str(tmp_path)])
+    assert rc == 1
+    text = capsys.readouterr().out
+    assert "# FAILED tiny.mtx f32 multichip" in text
+    assert "1 arm(s) failed a check: tiny.mtx f32" in text
+    assert json.loads(text.strip().splitlines()[-1])["arms_done"] == 2
+
+
+@pytest.mark.parametrize("chips", [None, "1"])
+def test_cli_multichip_skips_below_two_chips(tiny_mtx, capsys, chips):
+    argv = ["--multichip", "--device", "cpu", "--mtx", tiny_mtx]
+    assert cli.main(argv + (["--chips", chips] if chips else [])) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == {
+        "metric": "spmv_multichip_geomean", "value": 0.0,
+        "unit": "GFLOP/s", "vs_baseline": 0.0, "skipped": True}
+
+
+def test_multichip_devices_deal_chips_round_robin(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = torch.device("cuda")
+    assert cli.multichip_devices(cuda, None) == [torch.device("cuda", 0),
+                                                 torch.device("cuda", 1)]
+    assert cli.multichip_devices(cuda, 5) == [
+        torch.device("cuda", i % 2) for i in range(5)]
+    cpu = torch.device("cpu")
+    assert cli.multichip_devices(cpu, None) == [cpu]
+    assert cli.multichip_devices(cpu, 3) == [cpu] * 3
+
+
+def test_runner_on_several_devices_times_the_call():
+    calls = []
+    run = harness._runner(lambda: (calls.append(1), time.sleep(0.01)),
+                          (torch.device("cpu"), torch.device("cpu")))
+    assert run() == pytest.approx(0.01, abs=8e-3) and len(calls) == 2
+
+
 def test_plan_cache_round_trip(rng, tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "PLAN_CACHE_DIR", str(tmp_path / "cache"))
     csr = mixed_categories(200, rng)

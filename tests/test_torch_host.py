@@ -360,6 +360,7 @@ import dasp_tpu_torch.bench as bench
 from dasp_tpu_torch.bench import __main__ as bench_cli  # noqa
 from dasp_tpu_torch import analyze  # noqa
 from dasp_tpu_torch.examples import cg_solver, pagerank  # noqa
+from dasp_tpu_torch.parallel import MultiChipSpMV
 rng = np.random.default_rng(0)
 csr = mixed_categories(300, rng)
 op = dasp_tpu_torch.SpMVOperator(csr, dtype="f32", device="cpu")
@@ -371,6 +372,9 @@ y = op.perm_out(op.timing_loop(2)(op._prep_x(x)).numpy())
 err = np.abs(y - golden) / np.maximum(np.abs(golden), 1.0)
 assert op.resident and err.max() <= 2e-5, err.max()
 assert dasp_tpu_torch.categorize(csr).census["row_long"] >= 0
+mc = MultiChipSpMV(csr, devices=["cpu"] * 3)
+err = np.abs(mc(x) - golden) / np.maximum(np.abs(golden), 1.0)
+assert mc.resident and err.max() <= 2e-5, err.max()
 res = bench.bench_spmv(op, x, "f32", iters=2, trials=2)
 assert res.gflops > 0 and bench.record_from(op.plan, res, "m", "f32")
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
