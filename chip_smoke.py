@@ -23,18 +23,24 @@ Phases, one or more printed lines each, every one raising on failure:
      instance are printed after the build;
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
-     dtypes: SpMVOperator on the card in f32, f64 and bf16, and matmat
-     with 8 columns in f32, bf16 and f64, on operators built with
-     force_streamed=True (the streamed path), and the resident
-     timing loop (K6, a chain of 10) of a default operator, each against
-     the f64 CSR golden (for bf16 that of the bf16-rounded A and x),
-     scaled by the backward-error mass max(|A||x|, 1), and the resident y
-     against the streamed y; every kernel instance's launch count over
-     this phase must be non-zero, and one matmat call must launch K5 once
-     per stream and pass (the residue sub-plan's streams included, checked
-     on a fixture whose residue is repacked) and K1/K3 not at all; then
-     every instance against its plain version at these shapes (K5 at kv =
-     4 and 8);
+     dtypes: SpMVOperator on the card in f32, f64 and bf16 (each call
+     exactly one K6 launch at one step, the residue inside it, and
+     nothing else of the port's kernels; its y and y2 equal bit for bit to
+     their plain versions), and matmat with 8 columns in f32, bf16 and
+     f64, on operators built with force_streamed=True (the streamed
+     path), and the resident timing loop (K6, a chain of 10) of a default
+     operator, each against the f64 CSR golden (for bf16 that of the
+     bf16-rounded A and x), scaled by the backward-error mass
+     max(|A||x|, 1), and the resident y against the streamed y; every
+     kernel instance of the path must launch in this phase and K1/K3 not
+     at all, and one matmat call must launch K5 once per stream and pass
+     (the residue sub-plan's streams included, checked on a fixture whose
+     residue is repacked) and K1/K3 not at all; then every instance
+     against its plain version at these shapes (K5 at kv = 4 and 8); then,
+     on counts of their own, K1/K3 and K2/K4 on the reference-order
+     single-vector path (the same tables without the K6 schedule, where
+     they still run), exactly one K1/K3 a stream and one K2/K4 a plan a
+     call;
   5. timing with CUDA events (median of trials), each step issued eagerly
      and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop
      on the streamed operators: every step adds y[0]*1e-36 into x) in f32,
@@ -48,7 +54,11 @@ Phases, one or more printed lines each, every one raising on failure:
      (two K5 passes of 4, and one pass of 8) against 8 single SpMVs and
      cuSPARSE A @ X, per call and per column, in f32, f64 and bf16, with
      the device kernels one pass and one SpMV launch (the port's and the
-     glue's, from the profiler); every kernel instance alone (ALONE_REPS launches
+     glue's, from the profiler) and the device kernels of a streamed SpMV
+     (one K6 step, the chain's tap ops, bf16's rounding); the one-step
+     K6's phase clock (A, the residue's sums R, C, D) and the single-
+     vector SpMV eager and graphed beside the resident step and cuSPARSE;
+     every kernel instance alone (ALONE_REPS launches
      captured in one graph, so that the host's replay cost does not
      show) beside its plain version, with the bytes it must move and its
      bound; the outgather of one pass as one launch and as one launch a
@@ -71,6 +81,9 @@ Phases, one or more printed lines each, every one raising on failure:
      repacked as a sub-plan at size) in f32, f64 and bf16, and a 262,144 x
      8,388,608 matrix of ~2.1M nnz whose columns span the whole range
      (more columns than the reference puts in one plan) in f32 and f64.
+     rmat_like's one-step K6 (137,147 residue rows by trees) is held to
+     its plain version bit for bit, y and y2, and to the golden, with its
+     phase clock, in f32, bf16 and f64.
      Every arm passes the bench's checks (streamed y, resident loop y,
      each matmat column and cuSPARSE against the f64 CSR golden), writes
      its resident, streamed and SpMM rows under the reference's header,
@@ -79,19 +92,21 @@ Phases, one or more printed lines each, every one raising on failure:
      harness's time per SpMV must lie within 10 % of the smoke's for a
      resident loop and within 25 % for a streamed one (whose time depends
      on the capture by 10-16 %); every kernel instance of the path must
-     launch;
+     launch, and K1/K3 not at all;
   8. the examples: cg_solve in f32 and fp64 at n = 65,536 and pagerank at
      n = 100,000 to the originals' thresholds (solution error < 1e-3 f32,
      < 1e-6 fp64; ranks within 1e-3 of the host power iteration), with the
      iterations, the ms per iteration with and without the read-back, and
-     the SpMV's share; K1/K3 and K2/K4 must launch.
+     the SpMV's share; each SpMV is exactly one K6 launch, and K1/K3 and
+     K2/K4 never run; the SpMV of CG's small plan as one K6 step against
+     the reference-order glue it replaces.
   9. multi-chip: MultiChipSpMV (dasp_tpu_torch/parallel.py) with 4 chips
      on the one card, on the reference dry run's input
      (powerlaw_like(100,000, 1.8, 500,000, col_alpha=1.6), seed 11) in
      f32 and f64: y against the golden scaled by the mass, balance <=
-     1.5, every chip resident, one call launching exactly the K1/K3 and
-     K2/K4 of every chip's streams and plans and one timing loop one K6
-     per chip, the loop's y against the golden and the streamed y; then
+     1.5, every chip resident, one call launching exactly one K6 (one
+     step) per chip and one timing loop one K6 per chip, the loop's y
+     against the golden and the streamed y; then
      the bench's --multichip arm runner (run_multichip_arm) on
      cop20k_like and wikitalk_like in f32 and f64, each arm checked;
      every kernel instance of the path must launch; after the counts are
@@ -101,7 +116,10 @@ Phases, one or more printed lines each, every one raising on failure:
      operator's on the same matrix, and the all-gather alone.  Four chips
      on one card show the cost of partitioning, not scaling.
 Phases 4, 7, 8 and 9 each set the kernels' launch counts to 0 before they
-run and read them after; the kernels line carries phase 4's.  It then
+run and read them after; the kernels line carries phase 4's, but for
+K1/K3, which no user path with a stream runs any more: theirs are counted
+over the reference-order run at the end of phase 4, as T1-T4's are over
+their sweeps.  It then
 prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -157,7 +175,11 @@ INSTANCES = {
 # T1-T4 are probes, not on the SpMV path: their launches are counted over
 # their own sweeps (phase 6), every other instance's over phase 4
 PROBES = ("resident_probe", "gather_bench", "roundcost_ab", "stream_bench2")
-MAIN_PATH = tuple(k for k in INSTANCES if k not in PROBES)
+# K1/K3 run only on the reference-order single-vector path (tables
+# without a K6 schedule): on no user path of a plan with a stream
+REFERENCE_ORDER = ("colsum", "colsum_bf16", "colsum_f64")
+MAIN_PATH = tuple(k for k in INSTANCES
+                  if k not in PROBES + REFERENCE_ORDER)
 PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
 MC_CHIPS = 4            # chips of the multi-chip phase, all on the one card
 PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
@@ -341,9 +363,10 @@ def resident_bytes(op):
     the kernel's tables (schedule, wide rows, incidence, descriptors), src
     and the used slots' perm rows; writes the sell and long rows of y2 and
     the chunk rows and reads each back once; writes out; and reads the x
-    table for its gathers, then reads it and writes x_scr in the tap.  A
-    call reads each input once (those tables and x) and writes out once,
-    whatever its number of steps."""
+    table for its gathers, then reads it and writes x_scr in the tap (all
+    but the last step of a chain).  A call reads each input once (those
+    tables, the residue's and x) and writes out once, whatever its number
+    of steps."""
     import numpy as np
     nb = lambda t: t.numel() * t.element_size()
     meta, arrays = op._meta, op._arrays
@@ -356,7 +379,9 @@ def resident_bytes(op):
                  for (_, _, NV), st, n in zip(meta.streams,
                                               arrays["streams"], vregs))
     tables += (sum(nb(res[k]) for k in ("items", "wide", "inc_ptr",
-                                        "inc_tot", "inc_mult", "desc"))
+                                        "inc_tot", "inc_mult", "desc",
+                                        "res_ent", "res_task", "res_bptr",
+                                        "res_bent", "res_cols", "res_vals"))
                + nb(res["src"])
                + int((res["src"] != meta.n_y2_rows).sum()) * 128)
     x = meta.s_rows * 128 * el
@@ -367,9 +392,8 @@ def resident_bytes(op):
 
 def compare_resident(op, x2d, steps=(1, 3)):
     """K6 against its plain version on the same card tensors, bit for bit
-    (ops/resident.py pins the order of every sum, and the residue
-    correction after the loop is the same torch code on both sides).
-    Returns the worst (scaled, abs) error."""
+    (ops/resident.py pins the order of every sum, the residue's
+    included).  Returns the worst (scaled, abs) error."""
     import torch
     from dasp_tpu_torch.ops.resident import resident_loop, \
         resident_loop_plain
@@ -383,6 +407,60 @@ def compare_resident(op, x2d, steps=(1, 3)):
                                  f"its plain version: {e} (scaled, abs)")
         worst = [max(a, b) for a, b in zip(worst, e)]
     return worst
+
+
+def compare_one_step(op, x2d):
+    """The single-vector SpMV (``device_call``: one K6 launch at one
+    step) against the plain one step on the same card tensors, y and the
+    kernel's y2 bit for bit; the call must launch exactly one K6 of the
+    operator's dtype and no other kernel.  Returns y."""
+    import torch
+    from dasp_tpu_torch.ops.resident import resident_loop, \
+        resident_loop_plain, y2_plain
+    meta, arrays = op._meta, op._arrays
+    moved = launched(lambda: op.device_call(x2d))
+    if moved != {inst("resident", op.dtype): 1}:
+        raise AssertionError(f"one {op.dtype} SpMV launched {moved}, "
+                             f"expected one K6")
+    scratch = {}
+    y = resident_loop(meta, arrays, x2d, 1, scratch=scratch)
+    want = resident_loop_plain(meta, arrays, x2d, 1)
+    y2 = scratch["y2"]
+    if not (torch.equal(y, want) and torch.equal(y, op.device_call(x2d))
+            and torch.equal(y2, y2_plain(meta, arrays, x2d))):
+        raise AssertionError(
+            f"one-step K6 {op.dtype} differs from its plain version: y "
+            f"{scaled_err(y, want)}, y2 "
+            f"{scaled_err(y2, y2_plain(meta, arrays, x2d))} (scaled, abs)")
+    return y
+
+
+def one_step_lines(name, op, x, card):
+    """K6's phase clock over one step (the single-vector SpMV): A, the
+    residue's sums R, C and D (the outgather and the residue's adds), in
+    us, as a [phase] line."""
+    from dasp_tpu_torch.ops.resident import RES_WARP_MIN
+    ph = phase_split(op, op._prep_x(x), 1)
+    us = {k: ph[k] / 1e3 for k in ("A", "R", "C", "D")}
+    res = op._arrays["resident"]
+    log(f"[phase] {name} {op.dtype} K6 one step (a single-vector SpMV, the "
+        f"clock's own barrier before R): A {us['A']:.2f} us, residue sums "
+        f"R {us['R']:.2f} ({res['res_ent'].shape[0]} rows, "
+        f"{res['res_task'].shape[0]} warp tasks, "
+        f"{int((res['res_ent'][:, 2] >= RES_WARP_MIN).sum())} rows a "
+        f"warp), C "
+        f"{us['C']:.2f}, D {us['D']:.2f}; sum {sum(us.values()):.2f} us; "
+        f"grid {ph['grid']} [{card}]")
+    return us
+
+
+def launched(step):
+    """{instance: launches} that one call of ``step`` adds."""
+    from dasp_tpu_torch.ops import kernel_launches as read_counts
+    before = read_counts()
+    step()
+    return {k: n - before[k] for k, n in read_counts().items()
+            if n != before[k]}
 
 
 def phase_split(op, x2d, n):
@@ -599,19 +677,30 @@ def bench_phase(dev, arms, card):
 
 def examples_phase(dev, card):
     """cg_solve (f32, fp64) at n = 65,536 and pagerank at n = 100,000 to
-    the originals' thresholds, with their cost per iteration."""
+    the originals' thresholds, with their cost per iteration; each SpMV
+    exactly one K6 launch.  Returns the launch counts of that run; then
+    times CG's SpMV as one K6 step against the reference-order glue."""
     import numpy as np
     import dasp_tpu_torch as dt
     from dasp_tpu_torch.examples import cg_solver, pagerank
+    from dasp_tpu_torch.ops import cuda_backend as cb, \
+        kernel_launches as read_counts
     shared = dt.DaspConfig(row_sort="off")
     rng = np.random.default_rng(0)
-    n = 65_536
+    n = n_cg = 65_536
     csr = cg_solver.build_spd(n, rng)
     x_true = rng.standard_normal(n)
     b = csr.spmv(x_true)
     plan = dt.build_wplan(csr, shared)
+    cg_ops = {}
     for d, limit in (("f32", 1e-3), ("f64", 1e-6)):
-        op = dt.SpMVOperator(plan, dtype=d, device=dev, force_streamed=True)
+        op = cg_ops[d] = dt.SpMVOperator(plan, dtype=d, device=dev,
+                                         force_streamed=True)
+        x2d = op._prep_x(b)
+        moved = launched(lambda: op.device_call(x2d))
+        if moved != {inst("resident", d): 1}:
+            raise AssertionError(f"cg {d}: one SpMV launched {moved}, "
+                                 f"expected one K6")
         t = time.perf_counter()
         if d == "f64":
             x, res, iters = cg_solver.cg_solve_f64(op, b)
@@ -660,6 +749,20 @@ def examples_phase(dev, card):
         f"{loop_ms:.3f} ms = {loop_ms / (iters + 1) * 1e3:.1f} us per "
         f"iteration, the SpMV alone {spmv_ms * 1e3:.1f} us "
         f"({spmv_ms * (iters + 1) / loop_ms:.0%} of it) [{card}]")
+    counts = read_counts()
+    # a small plan: is one K6 step, on a grid sized to the card, slower
+    # than the glue it replaced?
+    for d, op in cg_ops.items():
+        x2d = op._prep_x(b)
+        glue = dict(op._arrays, resident=None)
+        us = [time_ms(graphed(step, ALONE_REPS), 5) / ALONE_REPS * 1e3
+              for step in (lambda: op.device_call(x2d),
+                           lambda: cb.spmv_fn(op._meta, glue, x2d))]
+        log(f"[examples] cg_solve {d} n={n_cg}: one SpMV as one K6 step "
+            f"{us[0]:.2f} us, as the reference-order glue (K1/K3, the "
+            f"glue, K2/K4) {us[1]:.2f} us (graph replays of {ALONE_REPS})"
+            f" [{card}]")
+    return counts
 
 
 def n_outgathers(meta):
@@ -734,10 +837,8 @@ def multichip_phase(dev, card):
             raise AssertionError(f"multichip {d}: {len(live)} chips with "
                                  f"rows, stats {op.stats}")
         golden, scale = golden_mass(csr, x, d)
-        # one call: exactly every chip's K1/K3 per stream and K2/K4 per
-        # plan (residue sub-plans included), nothing else
-        want = {inst("colsum", d): [n_streams(c._meta) for c in live],
-                inst("outgather", d): [n_outgathers(c._meta) for c in live]}
+        # one call: exactly one K6 (one step) per chip, nothing else
+        want = {inst("resident", d): [1] * len(live)}
         before = read_counts()
         t = time.perf_counter()
         y = op(x)
@@ -789,10 +890,11 @@ def multichip_phase(dev, card):
                 f"{time.perf_counter() - t:.2f} s [{card}]")
     launches = read_counts()
     log(f"[multichip] kernel launches in this phase: {launches}")
-    if not all(launches[inst(k, d)] for k in ("colsum", "outgather",
-                                              "resident")
-               for d in ("f32", "f64")):
-        raise AssertionError(f"a kernel of the multi-chip path never ran: "
+    if not (all(launches[inst("resident", d)] for d in ("f32", "f64"))
+            and not any(launches[inst(k, d)] for k in ("colsum",
+                                                       "outgather")
+                        for d in ("f32", "f64"))):
+        raise AssertionError(f"the multi-chip path did not run on K6 alone: "
                              f"{launches}")
     t = time.perf_counter()
     for d, op in ops.items():
@@ -1031,6 +1133,11 @@ def main():
                 f"streams={list(m.streams)} k_used={m.k_used} "
                 f"B_pad={m.B_pad} n_long={m.n_long} "
                 f"residue={m.overflow_meta} sub_plan={m.res is not None}")
+            compare_one_step(op, op._prep_x(x))
+            log(f"[e2e] {name} {d}: one SpMV = exactly one K6 launch at one "
+                f"step ({op._arrays['resident']['res_ent'].shape[0]} "
+                f"residue rows inside it), its y and y2 == the plain one "
+                f"step's bit for bit")
             t = time.perf_counter()
             Y, n5, n1 = matmat_counted(op, X)
             run = time.perf_counter() - t
@@ -1066,8 +1173,11 @@ def main():
             rops[name, d] = rop
     launches = read_counts()
     log(f"[e2e] kernel launches in this phase: {launches}")
-    if set(launches) != set(MAIN_PATH) or not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if (set(launches) != set(MAIN_PATH + REFERENCE_ORDER)
+            or not all(launches[k] for k in MAIN_PATH)
+            or any(launches[k] for k in REFERENCE_ORDER)):
+        raise AssertionError(f"a kernel of the path never ran, or K1/K3 "
+                             f"ran on it: {launches}")
     # a plan whose residue is repacked as a sub-plan (RES_REPACK_MIN = 1):
     # matmat runs the sub-plan's streams through K5 too
     t = time.perf_counter()
@@ -1113,6 +1223,30 @@ def main():
         note({inst("resident", d): e})
         log(f"[kernels] {name} {d}: K6 == its plain version bit for bit at "
             f"1 and 3 steps ({e[1]:.3e} abs)")
+    # K1/K3 and K2/K4 where K1/K3 still run: the reference-order single-
+    # vector path (the same tables without the K6 schedule), on counts of
+    # their own, each call exactly one K1/K3 a stream and one K2/K4 a plan
+    t = time.perf_counter()
+    zero_counts()
+    for (name, d), op in ops.items():
+        glue = dict(op._arrays, resident=None)
+        x2d = op._prep_x(xs[name])
+        moved = launched(lambda: cb.spmv_fn(op._meta, glue, x2d))
+        want = {inst("colsum", d): n_streams(op._meta),
+                inst("outgather", "f64" if d == "f64" else "f32"):
+                    n_outgathers(op._meta)}
+        if moved != want:
+            raise AssertionError(f"reference-order {name} {d}: launched "
+                                 f"{moved}, expected {want}")
+        y = op.perm_out(cb._to_host(cb.spmv_fn(op._meta, glue, x2d)))
+        csr = dict(suite)[name]
+        check(name, f"{d} reference-order SpMV", y,
+              *golden_mass(csr, xs[name], d), d, (csr.n_rows,))
+    ref_launches = read_counts()
+    launches.update({k: ref_launches[k] for k in REFERENCE_ORDER})
+    log(f"[e2e] reference-order single-vector path (no schedule): "
+        f"launches {ref_launches}, each y within E2E_TOL; "
+        f"{time.perf_counter() - t:.2f} s")
 
     # -- 5. timing -----------------------------------------------------------
     # "eager": each step issued from Python as the operator runs it;
@@ -1191,18 +1325,44 @@ def main():
                 f"bound {bound(call_b, CHAIN * flops, d)[0] * 1e3:.1f} us at "
                 f"{PEAK_BYTES / 1e12} TB/s [{card}]")
             ph = phase_split(rop, x2d, LONG_CHAIN)
-            us = {k: ph[k] / LONG_CHAIN / 1e3 for k in ("A", "C", "D")}
+            us = {k: ph[k] / LONG_CHAIN / 1e3 for k in ("A", "R", "C", "D")}
             split = sum(us.values())
             res = rop._arrays["resident"]
             mid = res["wide"].shape[0] > 0 or rop._meta.n_long_rows > 0
-            log(f"[phase] {name} {d} K6 per step: A {us['A']:.2f} us, B "
-                f"none, C {us['C']:.2f}, D+tap {us['D']:.2f}; sum "
+            log(f"[phase] {name} {d} K6 per step: A {us['A']:.2f} us, "
+                f"residue sums R {us['R']:.2f}, B none, C {us['C']:.2f}, "
+                f"D+tap {us['D']:.2f}; sum "
                 f"{split:.2f} us = {split / (t_step * 1e3):.1%} of the "
                 f"graphed step {t_step * 1e3:.2f} us (chain {LONG_CHAIN}); "
                 f"{3 if mid else 2} grid barriers a step, "
                 f"{res['items'].shape[0]} work items, "
                 f"{res['wide'].shape[0]} wide rows; grid {ph['grid']}, "
                 f"blocks/SM {ph['per_sm']} [{card}]")
+            one_step_lines(name, op, x, card)
+            # the streamed SpMV: one K6 step, and the chain's tap ops
+            moved = launched(steps["kernel"])
+            if moved != {inst("resident", d): CHAIN}:
+                raise AssertionError(f"{name} {d}: a streamed chain of "
+                                     f"{CHAIN} launched {moved}")
+            own, glue = kernel_counts(steps["kernel"])
+            log(f"[profile] {name} {d} device kernels per streamed SpMV "
+                f"(chain of {CHAIN}, eager, profiler): "
+                f"{(own + glue) / CHAIN:.1f} ({own / CHAIN:.1f} of the "
+                f"port's: K6; {glue / CHAIN:.1f} others: the tap's ops, "
+                f"bf16's rounding, the chain's copy of x); our counts: "
+                f"{moved}")
+            x1 = op._prep_x(x)
+            one = eager_and_graph(lambda: op.device_call(x1), 20)
+            log(f"[time] {name} {d} single-vector SpMV per call: streamed "
+                f"(chain {CHAIN}) graph {row['kernel graph'] * 1e3:.1f} us / "
+                f"eager {row['kernel eager'] * 1e3:.1f} us; one "
+                f"device_call graph {one[1] * 1e3:.1f} us / eager "
+                f"{one[0] * 1e3:.1f} us; resident K6 step (chain "
+                f"{LONG_CHAIN}) graph {t_step * 1e3:.1f} us; streamed / "
+                f"resident {row['kernel graph'] / t_step:.2f}x; cuSPARSE "
+                + (f"graph {lib * 1e3:.1f} us / eager "
+                   f"{row['cusparse eager'] * 1e3:.1f} us" if lib
+                   else "none (bf16)") + f" [{card}]")
             if name == "cop20k_like":
                 plain = time_ms(lambda r=rop, x2d=x2d: resident_loop_plain(
                     r._meta, r._arrays, x2d, CHAIN), 2)
@@ -1261,7 +1421,8 @@ def main():
                                         cb.spmv_fn(m, a, x))
             log(f"[profile] {name} {d} device kernels of one spmm_fn pass of "
                 f"4 vectors: {own} of the port's (K5, K2/K4) + "
-                f"{glue} of the glue; of one spmv_fn: {own1} + {glue1}")
+                f"{glue} of the glue; of one spmv_fn (one K6 step): {own1} "
+                f"+ {glue1}")
 
         # every kernel instance alone at this matrix's shapes (one SpMV's
         # worth: every stream's colsum, the outgather on its y2; one K5
@@ -1440,6 +1601,22 @@ def main():
             f"{plan.stats['pack_seconds']:.2f} s; residue "
             f"{plan.overflow.nnz if plan.overflow is not None else 0} nnz")
         arms.append((name, csr, plan, DTYPES))
+        if name != "rmat_like":
+            continue
+        # the largest residue of the suite, by trees inside one K6 step
+        x = np.random.default_rng(1).standard_normal(csr.n_cols)
+        for d in DTYPES:
+            op = dt.SpMVOperator(plan, dtype=d, device=dev,
+                                 force_streamed=True)
+            y = compare_one_step(op, op._prep_x(x))
+            e = check(name, f"{d} one-step SpMV",
+                      op.perm_out(cb._to_host(y)), *golden_mass(csr, x, d),
+                      d, (csr.n_rows,))
+            one_step_lines(name, op, x, card)
+            log(f"[bench] {name} {d}: one SpMV = one K6 launch, y and y2 == "
+                f"the plain one step's bit for bit; err {e:.3e} "
+                f"(mass-scaled, limit {E2E_TOL[d]})")
+            del op
     t2 = time.perf_counter()
     csr = huge_columns_matrix(np.random.default_rng(5))
     plan = dt.build_wplan(csr)
@@ -1452,9 +1629,10 @@ def main():
     bench_arms = bench_phase(dev, arms, card)
     bench_launches = read_counts()
     log(f"[bench] kernel launches in this phase: {bench_launches}")
-    if not all(bench_launches.values()):
-        raise AssertionError(f"a kernel of the bench's path never ran: "
-                             f"{bench_launches}")
+    if (not all(bench_launches[k] for k in MAIN_PATH)
+            or any(bench_launches[k] for k in REFERENCE_ORDER)):
+        raise AssertionError(f"a kernel of the bench's path never ran, or "
+                             f"K1/K3 ran on it: {bench_launches}")
     # Two clocks on one loop.  On ONE capture the harness's clock (one
     # replay between two events) and the smoke's (five) must agree within
     # 10 %.  Across captures a resident loop, one launch, must too; a
@@ -1485,12 +1663,12 @@ def main():
     # -- 8. the examples ---------------------------------------------------------
     t = time.perf_counter()
     zero_counts()
-    examples_phase(dev, card)
-    ex_launches = read_counts()
+    ex_launches = examples_phase(dev, card)
     log(f"[examples] kernel launches in this phase: {ex_launches}")
-    if not all(ex_launches[k] for k in ("colsum", "colsum_f64", "outgather",
-                                        "outgather_f64")):
-        raise AssertionError(f"a kernel of the examples' path never ran: "
+    if not (all(ex_launches[k] for k in ("resident", "resident_f64"))
+            and not any(ex_launches[inst(k, d)] for k in (
+                "colsum", "outgather") for d in ("f32", "f64"))):
+        raise AssertionError(f"the examples' path did not run on K6 alone: "
                              f"{ex_launches}")
     log(f"[examples] done in {time.perf_counter() - t:.2f} s")
 

@@ -16,8 +16,13 @@
 // the zero row's zero (outgather_plain adds it too), so the sums equal
 // outgather_plain's.
 //
-// y2 is read with plain loads, never through the read-only path: K6 writes
-// it in the same launch.  perm and out must be 4- and 16-byte aligned
+// K6's last step passes its COO residue too (res_bptr non-null): the
+// thread that owns lane l of block b adds the row's residue sum, rsum[i]
+// for the entry i * 128 + l of the block's range, to its sum after the
+// last slot, so each output word still has one writer.
+//
+// y2 and rsum are read with plain loads, never through the read-only path:
+// K6 writes them in the same launch.  perm and out must be 4- and 16-byte aligned
 // (the wrappers check perm; out is their own allocation).  Lanes per
 // thread were tried at 1, 2 and 4 for both types on an NVIDIA H100 80GB
 // HBM3: 16 bytes a thread was the fastest for each (PERF.md).
@@ -69,7 +74,9 @@ __device__ __forceinline__ uint32_t og_perm(const int8_t* row, int lane) {
 template <typename T>
 __device__ __forceinline__ void outgather_block(
     const int32_t* __restrict__ src, const int8_t* __restrict__ perm,
-    const T* y2, T* out, int64_t b, int B, int K, int zero_row, int lane) {
+    const T* y2, T* out, int64_t b, int B, int K, int zero_row, int lane,
+    const int32_t* __restrict__ res_bptr = nullptr,
+    const int32_t* __restrict__ res_bent = nullptr, const T* rsum = nullptr) {
   constexpr int L = og_lanes<T>();
   int s[OG_KMAX];
   bool any = false;
@@ -103,6 +110,16 @@ __device__ __forceinline__ void outgather_block(
       for (int u = 0; u < OG_CHUNK; ++u)
 #pragma unroll
         for (int q = 0; q < L; ++q) acc.v[q] = og_add(acc.v[q], v[u][q]);
+    }
+  }
+  if (res_bptr) {                // the residue rows of block b
+    const int r1 = __ldg(res_bptr + b + 1);
+    for (int r = __ldg(res_bptr + b); r < r1; ++r) {
+      const int e = __ldg(res_bent + r);
+      const int q = (e & (OG_LANES - 1)) - lane * L;
+#pragma unroll
+      for (int u = 0; u < L; ++u)
+        if (u == q) acc.v[u] = og_add(acc.v[u], rsum[e >> 7]);
     }
   }
   reinterpret_cast<OgVec<T>*>(out + b * OG_LANES)[lane] = acc;

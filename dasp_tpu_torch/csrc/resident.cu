@@ -18,12 +18,30 @@
 //       p = sum of multiplicity x total over its list, into y2 row
 //       Z - n_long_rows + p / 127, lane p % 127 (lane 127 and the tail of
 //       the last long row are written as zero);
-//   (D) the outgather (outgather_common.cuh, K2's body) into out, and the
-//       tap x_scr[r, l] = x_t[r, l] + y2[0, l] * tap on every row r.
+//   (D) the outgather (outgather_common.cuh, K2's body) into out, and,
+//       at every step but the last, the tap
+//       x_scr[r, l] = x_t[r, l] + y2[0, l] * tap on every row r (nothing
+//       reads a tap after the last step: at iters = 1 there is none, and
+//       no x_scr).
+// The COO residue (the rows the packer left out of the streams) is summed
+// from the caller's x once per call, in phase A of step 0 after the
+// block's items: a warp takes a task of the residue schedule
+// (ops/resident.py:prepare), either up to 32 rows, one a lane, each
+// summed over its octave tree's slots in order, or one row of a tree at
+// least RES_WARP_MIN slots wide, its slots dealt to the lanes (lane i
+// sums slots i, i + 32, ...) and the lanes added by a shuffle tree.  The
+// sums wait in rsum, and in phase D of the last step the thread that
+// outgathers a row's lane adds its sum to it, so a single-vector SpMV is
+// one launch at iters = 1.  The body sits at the 64-register cap, and
+// where this code goes moves the spills of the whole kernel (PERF.md §6:
+// of five placements measured, this one, inline in the step loop and in
+// the outgather, costs single steps the least and a chain's f64 step
+// 5-11 %).
 // Phases are separated by cg::this_grid().sync(): two per step (after A,
 // after D) when the plan has no wide slice and no long row, three with
-// them; there is no phase B.  Every output word is written by one thread
-// and there are no atomics, so the result is deterministic.  Instances
+// them, and none after the last step's D unless the clock runs; there is
+// no phase B.  Every output word is written by one thread and there are no
+// atomics, so the result is deterministic.  Instances
 // (value / sum type): dasp_resident_f32 (float / float),
 // dasp_resident_bf16 (__nv_bfloat16 / float), dasp_resident_f64 (double /
 // double: native fp64, where the reference carries double-double pairs
@@ -38,7 +56,12 @@
 // adds the vreg's levels per lane in order, then a lane tree
 // c[l] += c[l + s], s = 64, 32, 16, 8, 4, 2, 1; a long scalar adds
 // m * total over its list in order from the first product; the outgather
-// adds the k_used slots in order from zero.
+// adds the k_used slots in order from zero; a residue row's sum starts at
+// the product of its tree's slot 0 and adds the slots 1 .. w - 1 in order
+// (a padding slot adds a zero), or, for a tree of w >= RES_WARP_MIN slots,
+// lane i adds the slots i, i + 32, ... in order and the lanes are added by
+// c[l] += c[l + s], s = 16, 8, 4, 2, 1; the residue sum is added to the
+// outgather's sum last.
 //
 // What bounds it on this card.  Latency, not bytes: the bytes a step
 // moves (each scheduled vreg's wins, vals and idx, the x table, y2 and the
@@ -66,8 +89,11 @@
 // cop20k_like / webbase_like: f32 21.7 / 32.6 us, bf16 21.0 / 28.6, f64
 // 35.2 / 49.2, against 29.9 / 75.6, 27.8 / 71.5 and 52.8 / 88.4 for the
 // first design on the same card and 23.5 / 29.4 (f32) and 26.8 / 39.3
-// (f64) for cuSPARSE.  The phase clock (`stamps`) times the phases;
-// PERF.md has the split before and after.
+// (f64) for cuSPARSE.  The phase clock (`stamps`) times the phases; with
+// it on, a barrier of its own ends the items of step 0 so that the
+// residue's sums have a word of their own (R; its adds count in D), and D
+// has no tap at the last step.  PERF.md has the split before and
+// after.
 //
 // Shape on Hopper: blocks of 128 x VPB threads, as many as are co-resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, fewer if the work
@@ -103,6 +129,9 @@ constexpr int COMBINE = 8;                 // chunk rows in flight in (C)
 constexpr int TAP_U = 2;                   // x vectors in flight in the tap
 constexpr int MAX_P = 32;                  // windows of a vreg (the packer's
                                            // P_CLASSES[-1])
+constexpr int WARP = 32;
+constexpr int RES_WARP_MIN = 64;           // tree slots from which a residue
+                                           // row takes a whole warp
 
 // int64 fields of one stream's row of the descriptor table, in the order
 // of ops/resident.py:DESC_FIELDS
@@ -113,8 +142,13 @@ enum { I_STREAM, I_V0, I_NV, I_W, I_F, I_R, I_DST, I_OUT, I_TOT, I_MASK,
 enum { DST_Y2, DST_CHUNK, DST_NONE };      // where an item's rows go
 // int32 fields of a wide y2 row (ops/resident.py:WIDE_FIELDS)
 enum { W_Y2, W_FIRST, W_N, W_STEP, NWIDE };
+// int32 fields of a residue row (ops/resident.py:RES_FIELDS): its first
+// slot, its slots, its tree's width; of a residue task (RES_TASK_FIELDS):
+// its first row, its rows
+enum { R_SLOT, R_LEN, R_W, NRES };
+enum { T_FIRST, T_N, NTASK };
 // words of the phase clock (ops/resident.py:STAMPS)
-enum { S_A, S_C, S_D, S_GRID, S_PER_SM, STAMP_WORDS };
+enum { S_A, S_R, S_C, S_D, S_GRID, S_PER_SM, STAMP_WORDS };
 
 template <typename A>
 struct Params {
@@ -137,6 +171,14 @@ struct Params {
   A* y2;                    // (Z + 1, 128): row Z is zeroed at the start
   A* tot;                   // vreg totals
   A* out;                   // (B, 128)
+  const int32_t* res_ent;   // (n_res, NRES) residue rows, in task order
+  const int32_t* res_task;  // (n_res_tasks, NTASK)
+  int n_res_tasks;
+  const int32_t* res_cols;  // residue slots: x word, value
+  const A* res_vals;
+  A* rsum;                  // (n_res,) the residue rows' sums
+  const int32_t* res_bptr;  // (B + 1,) residue entries of each out block
+  const int32_t* res_bent;  // row index * 128 + lane, by block
   int iters;
   A tap;
   long long* stamps;        // the phase clock (STAMP_WORDS), or null
@@ -264,6 +306,45 @@ __device__ __forceinline__ void colsum_item(int stride, int F,
   }
 }
 
+// The COO residue's row sums from the caller's x, a warp per task of
+// the residue schedule (warp `warp` of `warps`, counted from the grid's
+// last warp, whose blocks hold the cheapest items), into rsum.
+template <typename A>
+__device__ __forceinline__ void residue_sums(const Params<A>& p,
+                                             int64_t warp, int64_t warps,
+                                             int lane) {
+  for (int64_t k = warps - 1 - warp; k < p.n_res_tasks; k += warps) {
+    const int32_t* task = p.res_task + k * NTASK;
+    const int64_t e0 = task[T_FIRST];
+    const int32_t* e = p.res_ent + e0 * NRES;
+    if (e[R_W] >= RES_WARP_MIN) {          // one wide row for the warp
+      const int64_t s0 = e[R_SLOT];
+      const int L = e[R_LEN], w = e[R_W];
+      A acc = A(0);
+      for (int k2 = lane; k2 < w; k2 += WARP) {
+        const A v = k2 < L ? mul_rn(p.res_vals[s0 + k2],
+                                    p.x[p.res_cols[s0 + k2]])
+                           : A(0);
+        acc = k2 == lane ? v : add_rn(acc, v);
+      }
+#pragma unroll
+      for (int s = WARP / 2; s > 0; s >>= 1)
+        acc = add_rn(acc, __shfl_down_sync(0xffffffffu, acc, s));
+      if (lane == 0) p.rsum[e0] = acc;
+    } else if (lane < task[T_N]) {          // a row a lane
+      const int32_t* el = e + (int64_t)lane * NRES;
+      const int64_t s0 = el[R_SLOT];
+      const int L = el[R_LEN], w = el[R_W];
+      A acc = mul_rn(p.res_vals[s0], p.x[p.res_cols[s0]]);
+      for (int k2 = 1; k2 < L; ++k2)
+        acc = add_rn(acc, mul_rn(p.res_vals[s0 + k2],
+                                 p.x[p.res_cols[s0 + k2]]));
+      if (w > L) acc = add_rn(acc, A(0));  // the padding slots' zeros
+      p.rsum[e0 + lane] = acc;
+    }
+  }
+}
+
 template <typename V, typename A>
 __global__ void __launch_bounds__(LANES * VPB, 2)
 resident_kernel(Params<A> p) {
@@ -354,8 +435,16 @@ resident_kernel(Params<A> p) {
     }
     if (it + 1 < p.iters && blockIdx.x < p.n_items)
       stage_item(stage[buf], p.items, p.desc, blockIdx.x, t, j);
+    const bool res_lap = it == 0 && p.n_res_tasks > 0 && p.stamps;
+    if (res_lap) {              // the clock times the residue on its own
+      grid.sync();
+      clock.lap(S_A);
+    }
+    if (it == 0)
+      residue_sums(p, row * (LANES / WARP) + j / WARP, rows * (LANES / WARP),
+                   j % WARP);
     grid.sync();
-    clock.lap(S_A);
+    clock.lap(res_lap ? S_R : S_A);
 
     // (C) wide rows (one thread row each), long scalars (one thread per
     // lane of a long row, counted from the thread after the wide rows')
@@ -400,13 +489,18 @@ resident_kernel(Params<A> p) {
       clock.lap(S_C);
     }
 
-    // (D) outgather, then the tap in 16-byte vectors, TAP_U of them in
-    // flight per thread (y2 row 0 is final; (A) has read x)
+    // (D) outgather (adding the residue at the last step), then, but for
+    // the last step, the tap in 16-byte vectors, TAP_U of them in flight
+    // per thread (y2 row 0 is final; (A) has read x)
+    const bool last = it + 1 == p.iters;
     for (int64_t b = tid / og_threads<A>(); b < p.B;
          b += nthreads / og_threads<A>())
       outgather_block<A>(p.src, p.perm, p.y2, p.out, b, p.B, p.K, p.Z,
-                         (int)(tid % og_threads<A>()));
-    {
+                         (int)(tid % og_threads<A>()),
+                         last && p.n_res_tasks ? p.res_bptr : nullptr,
+                         p.res_bent, p.rsum);
+
+    if (!last) {
       constexpr int VW = og_lanes<A>();
       const OgVec<A>* xv = reinterpret_cast<const OgVec<A>*>(x);
       const OgVec<A>* y0 = reinterpret_cast<const OgVec<A>*>(p.y2);
@@ -435,7 +529,7 @@ resident_kernel(Params<A> p) {
       }
     }
     // the clock's last lap waits for every block
-    if (it + 1 < p.iters || p.stamps) grid.sync();
+    if (!last || p.stamps) grid.sync();
     clock.lap(S_D);
   }
   clock.write(p.per_sm);
@@ -449,9 +543,12 @@ int launch(const void* desc, const void* items, int n_items,
            const void* inc_tot, const void* inc_mult, int n_long,
            int n_long_rows, const void* src, const void* perm, int B, int K,
            int Z, const void* x, void* x_scr, long long x_words, void* y2,
-           void* tot, void* out, int iters, double tap, void* stamps,
-           void* stream) {
-  if (iters < 1 || n_items < 0 || Z < n_long_rows || K > OG_KMAX)
+           void* tot, void* out, const void* res_ent, const void* res_task,
+           int n_res_tasks, const void* res_cols, const void* res_vals,
+           void* rsum, const void* res_bptr, const void* res_bent,
+           int iters, double tap, void* stamps, void* stream) {
+  if (iters < 1 || n_items < 0 || Z < n_long_rows || K > OG_KMAX ||
+      n_res_tasks < 0 || (iters > 1 && !x_scr))
     return (int)cudaErrorInvalidValue;
   Params<A> p;
   p.desc = static_cast<const int64_t*>(desc);
@@ -476,6 +573,14 @@ int launch(const void* desc, const void* items, int n_items,
   p.y2 = static_cast<A*>(y2);
   p.tot = static_cast<A*>(tot);
   p.out = static_cast<A*>(out);
+  p.res_ent = static_cast<const int32_t*>(res_ent);
+  p.res_task = static_cast<const int32_t*>(res_task);
+  p.n_res_tasks = n_res_tasks;
+  p.res_cols = static_cast<const int32_t*>(res_cols);
+  p.res_vals = static_cast<const A*>(res_vals);
+  p.rsum = static_cast<A*>(rsum);
+  p.res_bptr = static_cast<const int32_t*>(res_bptr);
+  p.res_bent = static_cast<const int32_t*>(res_bent);
   p.iters = iters;
   p.tap = (A)tap;
   p.stamps = static_cast<long long*>(stamps);
@@ -503,8 +608,9 @@ int launch(const void* desc, const void* items, int n_items,
   need = std::max(need, cdiv(n_wide, VPB));
   need = std::max(need, cdiv((int64_t)B * og_threads<A>(),
                               (int64_t)VPB * LANES));
-  need = std::max(need, cdiv(x_words, (int64_t)VPB * LANES));
+  if (iters > 1) need = std::max(need, cdiv(x_words, (int64_t)VPB * LANES));
   need = std::max(need, cdiv(n_long_rows, VPB));
+  need = std::max(need, cdiv(n_res_tasks, VPB * LANES / WARP));
   const int grid = (int)std::max<int64_t>(
       1, std::min<int64_t>(need, (int64_t)per_sm * sms));
   void* args[] = {&p};
@@ -523,12 +629,16 @@ int launch(const void* desc, const void* items, int n_items,
       int n_wide, void* cbuf, const void* inc_ptr, const void* inc_tot,      \
       const void* inc_mult, int n_long, int n_long_rows, const void* src,    \
       const void* perm, int B, int K, int Z, const void* x, void* x_scr,     \
-      long long x_words, void* y2, void* tot, void* out, int iters,          \
-      double tap, void* stamps, void* stream) {                              \
+      long long x_words, void* y2, void* tot, void* out,                     \
+      const void* res_ent, const void* res_task, int n_res_tasks,            \
+      const void* res_cols, const void* res_vals, void* rsum,                \
+      const void* res_bptr, const void* res_bent, int iters, double tap,     \
+      void* stamps, void* stream) {                                          \
     return launch<V, A>(desc, items, n_items, wide, n_wide, cbuf, inc_ptr,   \
                         inc_tot, inc_mult, n_long, n_long_rows, src, perm,   \
-                        B, K, Z, x, x_scr, x_words, y2, tot, out, iters,     \
-                        tap, stamps, stream);                                \
+                        B, K, Z, x, x_scr, x_words, y2, tot, out, res_ent,   \
+                        res_task, n_res_tasks, res_cols, res_vals, rsum,     \
+                        res_bptr, res_bent, iters, tap, stamps, stream);     \
   }
 
 DASP_RESIDENT(dasp_resident_f32, float, float)

@@ -49,6 +49,9 @@ _RESIDENT = (_P, _P, _I, _P, _I, _P,    # desc, items, n_items, wide, n_wide,
              _P, _P, _I, _I, _I,        # src, perm, B, K, zero row Z
              _P, _P, _L,                # x, x_scr, x words
              _P, _P, _P,                # y2, tot, out
+             _P, _P, _I, _P, _P, _P,    # res_ent, res_task, n_res_tasks,
+                                        # res_cols, res_vals, rsum
+             _P, _P,                    # res_bptr, res_bent
              _I, _D, _P, _P)            # iters, tap, stamps, stream
 _PROBE = (_P, _P, _P, _P, _L, _I, _P)
 _ROUNDCOST = (_P, _P, _P, _P, _P, _I, _I, _I, _P)

@@ -8,17 +8,22 @@ The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
   TPU; ``arrays_to_device`` moves them onto a device, and
   ``arrays_from_reference`` does the same for tables the JAX package
   lowered, so both packages can run the very same tables.
-* ``spmv_fn`` runs one colsum launch per stream (K1, or K3 in f64,
-  ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
+* ``spmv_fn`` runs one single-vector SpMV as ONE launch of the resident
+  executor at one step (K6, ``ops/resident.py``, the COO residue added
+  inside it) on every table set with a schedule, which is every plan
+  with a stream.  Table sets without one (the empty plan, and the
+  reference's tables carried across by ``arrays_from_reference``) take
+  the reference-order glue: one colsum launch per stream (K1, or K3 in
+  f64, ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
   outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
 * ``spmm_fn`` runs one multi-vector colsum launch per stream (K5,
-  ``ops/colsum_multi.py``) for kv vectors, then the same glue once, the
-  vector as a batch dimension, and one outgather launch; ``spmv_fn`` is
-  its one-vector case on K1/K3.
+  ``ops/colsum_multi.py``) for kv vectors, then that glue once, the
+  vector as a batch dimension, and one outgather launch.
 * ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474), on the
   CUDA card unless the caller names another device: ``__call__``,
-  ``matmat``, and ``timing_loop``, which runs the resident executor (K6,
-  ``ops/resident.py``) on a resident operator.
+  ``matmat``, and ``timing_loop``, which runs the whole chain in one K6
+  launch on a resident operator and one K6 step a SpMV with
+  ``force_streamed``.
 
 Dtypes: f32 runs f32 throughout.  bf16 stores the stream values as bf16
 and runs x, the sums and the glue in f32, rounding y to bf16 at the end
@@ -432,8 +437,9 @@ def arrays_to_device(meta: WMeta, arrays: Dict, device) -> Dict:
     if o is not None:
         n_sums = o["sort_back"].shape[0]        # rsums = sums + one zero
         keep = o["fb_rows"] < meta.n_rows        # .at[].add(mode="drop")
-        # every residue row's sum at its row, for the resident executor
-        # (the streamed path routes them through y2 and fb_rows instead)
+        # every residue row's sum at its row, for K6's plain version (the
+        # kernel reads ops/resident.py's residue tables; the reference-
+        # order glue routes the sums through y2 and fb_rows instead)
         keep_t = o["tree_rows"] < meta.n_rows
         out["overflow"] = dict(
             cols=_index(o["cols"], meta.s_rows * LANES - 1, dev),
@@ -526,10 +532,20 @@ def spmv_fn(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
     """x2d (s_rows,128) (f64 for f64 plans, f32 otherwise) -> y (n_rows,)
     in the plan's row order: f32, bf16 or f64 by the plan's dtype.
     ``plain`` runs the kernels' plain PyTorch versions on any device (the
-    smoke's comparison path); otherwise the wrappers pick by device.
-    This is the one-vector case of the glue ``spmm_fn`` runs: one colsum
-    per stream (K1 for f32/bf16 values, K3 for f64), then ``_assemble_y``
-    on the (1, rows, 128) partials."""
+    smoke's comparison path); otherwise the wrappers pick by device: a
+    CUDA tensor launches the kernels or raises.
+
+    Tables with a schedule (``arrays["resident"]``): one K6 step,
+    ``resident_loop(meta, arrays, x2d, 1)``, one launch with the residue
+    inside.  Without one (the empty plan; ``arrays_from_reference``'s
+    tables): the reference-order glue, the one-vector case of what
+    ``spmm_fn`` runs, on K1/K3 (one colsum per stream), ``_assemble_y``
+    and K2/K4.  The two differ in the order of their sums only."""
+    if arrays.get("resident") is not None:
+        from . import resident
+        loop = (resident.resident_loop_plain if plain
+                else resident.resident_loop)
+        return loop(meta, arrays, x2d, 1)
     return _narrow(meta, _wide(meta, arrays, x2d.unsqueeze(0), plain,
                                multi=False)[0])
 
@@ -573,8 +589,10 @@ def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
     then the glue runs ONCE on the (kv, rows, 128) partials, with the
     vector as a batch dimension, one outgather launch covers the kv
     vectors, and a residue sub-plan recurses as an SpMM (its streams run
-    through K5 too).  Row j depends on table j alone, and equals
-    ``spmv_fn`` on it.  For f64 this is one fp64 pass, where the reference
+    through K5 too).  Row j depends on table j alone, and equals, bit for
+    bit, the reference-order ``spmv_fn`` on it (the tables without their
+    schedule); the scheduled ``spmv_fn`` (K6) sums in another order.  For
+    f64 this is one fp64 pass, where the reference
     runs two f32 cross-product passes (spmm_fn_dd, :1043)."""
     if x3d.shape[0] != kv * meta.s_rows:
         raise ValueError(f"spmm_fn: x3d has {x3d.shape[0]} rows, kv "
@@ -691,9 +709,11 @@ class TorchSpMV:
     another) for the operator's lifetime; ``__call__`` and ``matmat`` take
     and return host arrays in original order, and ``device_call`` maps a
     device x table to a device y in the plan's (possibly relabeled) row
-    order.  ``timing_loop`` runs the resident executor (K6,
-    ``ops/resident.py``) when ``resident`` is true, which is every plan
-    with a stream unless ``force_streamed``, and the streamed path
+    order.  Every plan with a stream gets the resident executor's
+    schedule (K6, ``ops/resident.py``), so ``__call__`` and
+    ``device_call`` are one K6 step each; ``timing_loop`` runs the whole
+    chain in one K6 launch when ``resident`` is true, which is every plan
+    with a stream unless ``force_streamed``, and one K6 step a SpMV
     otherwise.  ``config.strict_f64`` changes nothing: the f64 path is
     native fp64, always strict."""
 
@@ -709,8 +729,8 @@ class TorchSpMV:
         self.dtype = dtype
         self.device = torch.device(device)
         self._meta, arrays = plan_to_arrays(self.plan, dtype)
-        if not force_streamed:
-            resident.prepare(self._meta, arrays)
+        resident.prepare(self._meta, arrays)
+        self.force_streamed = force_streamed
         self._arrays = arrays_to_device(self._meta, arrays, self.device)
         self.preprocess_seconds = time.perf_counter() - t0
 
@@ -727,16 +747,19 @@ class TorchSpMV:
 
     @property
     def resident(self) -> bool:
-        """True when ``timing_loop`` runs the resident executor (K6)."""
-        return self._arrays["resident"] is not None
+        """True when ``timing_loop`` runs the whole chain in one launch of
+        the resident executor (K6)."""
+        return (not self.force_streamed
+                and self._arrays["resident"] is not None)
 
     def timing_loop(self, iters: int, plain: bool = False):
         """A callable x2d -> y running chained SpMVs on the device, as
         PallasSpMV.timing_loop (:1302-1338) does.  Resident: ``iters``
         SpMVs in one K6 launch (``resident.resident_loop``), each adding
         row 0 of its y2 times TAP into every row of x.  Streamed:
-        ``iters`` SpMVs, each adding y[0] * TAP into x (in x's dtype:
-        fp64 for f64), then one more SpMV whose y it returns.  x2d is
+        ``iters`` SpMVs (``spmv_fn``, one K6 step each), each adding
+        y[0] * TAP into x (in x's dtype: fp64 for f64), then one more
+        SpMV whose y it returns.  x2d is
         never written.  ``plain`` runs the kernels' plain versions (the
         smoke's comparison)."""
         meta, arrays = self._meta, self._arrays

@@ -31,8 +31,9 @@ class SpMVOperator(TorchSpMV):
       device: where the tables live and the kernels run ("cuda" by
         default, "cpu", a torch.device); CUDA tensors run the hand-written
         kernels, CPU tensors their plain PyTorch versions.
-      force_streamed: run ``timing_loop`` on the streamed path even where
-        the plan could run resident (``resident`` is then False), as the
+      force_streamed: run ``timing_loop`` as ``iters + 1`` single-vector
+        SpMVs (one K6 step each) even where the plan could run the whole
+        chain in one launch (``resident`` is then False), as the
         reference's ``PallasSpMV(force_streamed=True)``.
     """
 
@@ -44,8 +45,6 @@ class SpMVOperator(TorchSpMV):
 
 def spmv(csr: CSRMatrix, x, dtype: str = "f32",
          config: DaspConfig | None = None, *, device="cuda"):
-    """One-shot convenience wrapper: pack + run once (one streamed SpMV,
-    so the resident tables, which only ``timing_loop`` reads, are not
-    built)."""
-    return SpMVOperator(csr, dtype, config, device=device,
-                        force_streamed=True)(x)
+    """One-shot convenience wrapper: pack + run once (one single-vector
+    SpMV: one K6 step on the card)."""
+    return SpMVOperator(csr, dtype, config, device=device)(x)

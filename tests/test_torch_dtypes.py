@@ -193,7 +193,10 @@ def test_bf16_residue_subplan_joins_in_f32(monkeypatch):
     """A bf16 plan's residue sub-plan y is added to y in f32 and the sum
     rounded once.  The reference rounds the sub-plan's y to bf16 before
     adding it (pallas_backend.py:1012), a defect the port does not copy:
-    that order would give another y on this fixture."""
+    that order would give another y on this fixture.  The sub-plan joins
+    in the reference-order glue (``spmv_fn`` on the tables without their
+    K6 schedule, and ``spmm_fn``); ``op(x)``, one K6 step that sums the
+    residue by its trees and runs no sub-plan, is held to the golden."""
     monkeypatch.setattr(cb, "RES_REPACK_MIN", 1)
     monkeypatch.setattr(pb, "RES_REPACK_MIN", 1)
     csr, rng = _residue_fixture()
@@ -202,7 +205,8 @@ def test_bf16_residue_subplan_joins_in_f32(monkeypatch):
     assert meta.res is not None, "sub-plan path not taken"
     x = rng.standard_normal(csr.n_cols)
     x2d = op._prep_x(x)
-    y = op.device_call(x2d)
+    glue = dict(op._arrays, resident=None)
+    y = cb.spmv_fn(meta, glue, x2d)
     assert y.dtype == torch.bfloat16
     wide = cb._wide(meta, op._arrays, x2d.unsqueeze(0), False, False)[0]
     assert wide.dtype == torch.float32
@@ -214,7 +218,7 @@ def test_bf16_residue_subplan_joins_in_f32(monkeypatch):
         ys = orig(m, arrays, xt, plain, multi)
         return ys.to(torch.bfloat16).float() if m is meta.res else ys
     monkeypatch.setattr(cb, "_wide", rounded_sub)
-    assert not torch.equal(op.device_call(x2d), y), \
+    assert not torch.equal(cb.spmv_fn(meta, glue, x2d), y), \
         "fixture no longer tells the two orders apart"
     monkeypatch.setattr(cb, "_wide", orig)
     golden = _golden(csr, x, "bf16")

@@ -168,8 +168,9 @@ def test_multichip_scale_balance(rng):
 @pytest.mark.parametrize("force_streamed", [False, True])
 def test_multichip_timing_loop(rng, monkeypatch, force_streamed):
     """The bench's chained loop agrees with one step (the 1e-36 taps are
-    below f32 resolution).  Resident: one K6 call per chip and loop;
-    streamed: the pieces of x are never written."""
+    below f32 resolution).  A step is one K6 call at one step per chip;
+    a loop, resident: one K6 call of 3 steps per chip, streamed: four
+    steps; the pieces of x are never written."""
     csr = mixed_categories(900, rng)
     op = par.MultiChipSpMV(csr, devices=CPU8, dtype="f32",
                            force_streamed=force_streamed)
@@ -187,7 +188,8 @@ def test_multichip_timing_loop(rng, monkeypatch, force_streamed):
     y_step = op.stitch(op.step(pieces))
     y_loop = op.stitch(op.timing_loop(3)(pieces))
     chips = sum(c is not None for c in op.chips)
-    assert calls == ([] if force_streamed else [3] * chips)
+    assert calls == [1] * chips + ([1] * (4 * chips) if force_streamed
+                                   else [3] * chips)
     assert all(torch.equal(a, b) for a, b in zip(pieces, kept))
     np.testing.assert_allclose(y_loop, y_step, rtol=2e-5, atol=2e-4)
     assert _scaled(y_loop, csr.spmv(x)) <= 2e-5

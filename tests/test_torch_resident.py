@@ -301,14 +301,15 @@ def test_resident_tap_and_residue_from_caller_x(monkeypatch):
 
 
 def test_force_streamed_and_empty():
-    """force_streamed=True keeps the operator off the resident path; the
-    empty matrix is never resident (the reference fails there) and its
-    timing loop returns zeros."""
+    """force_streamed=True keeps the operator's timing loop off the
+    resident chain, though it carries the schedule (each of its SpMVs is
+    one K6 step); the empty matrix has no schedule, is never resident
+    (the reference fails there) and its timing loop returns zeros."""
     rng = np.random.default_rng(0)
     csr = tsp.mixed_categories(300, rng)
     assert dt.SpMVOperator(csr, device="cpu").resident
     op = dt.SpMVOperator(csr, device="cpu", force_streamed=True)
-    assert not op.resident and op._arrays["resident"] is None
+    assert not op.resident and op._arrays["resident"] is not None
     x2d = op._prep_x(rng.standard_normal(csr.n_cols))
     assert torch.equal(op.timing_loop(0)(x2d), op.device_call(x2d))
     empty = tsp.random_csr(50, 50, np.zeros(50, np.int64), rng)

@@ -2,13 +2,19 @@
 launch per stream, then ``stack_y2`` / ``_assemble_y`` once with the
 vector as a batch dimension, one outgather, the residue sub-plan as an
 SpMM) on fixtures that reach every branch of it, in f32, bf16 and f64:
-against ``spmv_fn`` per vector, against ``PallasSpMV.matmat``
-(``force_streamed=True``) and against the CSR golden.
+against the reference-order single-vector SpMV per vector (``spmv_fn`` on
+the tables without their K6 schedule: K1/K3, the same glue, K2/K4),
+against the one-step K6 SpMV that ``op(x)`` runs, against
+``PallasSpMV.matmat`` (``force_streamed=True``) and against the CSR
+golden.
 
 Tolerances, on the error scaled by max(|ref|, 1):
-- a column against ``spmv_fn`` on its own table: equal, bit for bit.  The
-  batched reductions run on contiguous (kv, rows, 128) partials and give
-  each vector the sums, in the order, that the single-vector call gives;
+- a column against the reference-order ``spmv_fn`` on its own table:
+  equal, bit for bit.  The batched reductions run on contiguous (kv,
+  rows, 128) partials and give each vector the sums, in the order, that
+  the single-vector call gives;
+- ``op(x)`` (one K6 step, which folds in K6's order and sums the residue
+  by trees) against the golden, as matmat is;
 - a column against itself when its neighbours and the zero padding
   change: equal, bit for bit (a column depends on no other);
 - matmat against the golden: f32 2e-5 and f64 1e-10; bf16 1e-2 against
@@ -97,6 +103,17 @@ def _close(Y, G, tol, scale=None):
                                rtol=0, atol=tol)
 
 
+def _glue_call(op, x2d):
+    """The reference-order single-vector SpMV: ``spmv_fn`` on the
+    operator's tables without their K6 schedule."""
+    return cb.spmv_fn(op._meta, dict(op._arrays, resident=None), x2d)
+
+
+def _glue_host(op, x):
+    """``_glue_call`` on host x, in original row order (as ``op(x)``)."""
+    return op.perm_out(cb._to_host(_glue_call(op, op._prep_x(x))))
+
+
 def _check_golden(csr, X, Y, dtype):
     """Y against the CSR golden at TOL[dtype]; bf16 against the golden of
     the bf16-rounded A and X, scaled by the row's mass."""
@@ -133,9 +150,10 @@ def test_glue_fixture_reaches_its_branch(name, monkeypatch):
 @pytest.mark.parametrize("name", list(GLUE_CASES))
 def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
                                                     monkeypatch):
-    """One batched pass per fixture and dtype: each column equals spmv_fn
-    on its table bit for bit, and matmat matches the golden and
-    PallasSpMV.matmat (5 columns: one pass of 8, padded)."""
+    """One batched pass per fixture and dtype: each column equals the
+    reference-order spmv_fn on its table bit for bit, matmat and op(x)
+    (one K6 step) match the golden, and matmat PallasSpMV.matmat (5
+    columns: one pass of 8, padded)."""
     rng = np.random.default_rng(0)
     csr, op = _operator(name, dtype, monkeypatch, rng)
     X = rng.standard_normal((csr.n_cols, 5))
@@ -144,12 +162,14 @@ def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
     Y4 = cb.spmm_fn(op._meta, op._arrays, torch.cat(xs), kv)
     assert Y4.shape == (kv, csr.n_rows)
     for j, x2d in enumerate(xs):
-        assert torch.equal(Y4[j], op.device_call(x2d)), j
+        assert torch.equal(Y4[j], _glue_call(op, x2d)), j
     Y = op.matmat(X)
     assert Y.shape == (csr.n_rows, 5) and Y.dtype == np.float64
     for j in range(5):
-        np.testing.assert_array_equal(Y[:, j], op(X[:, j]))
+        np.testing.assert_array_equal(Y[:, j], _glue_host(op, X[:, j]))
     _check_golden(csr, X, Y, dtype)
+    _check_golden(csr, X, np.stack([op(X[:, j]) for j in range(5)], 1),
+                  dtype)
     Yr = np.asarray(_reference(name, csr, dtype).matmat(X[:, :kv]),
                     np.float64)
     _close(Y[:, :kv], Yr, REF_TOL[dtype])
@@ -160,7 +180,8 @@ def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
 def test_matmat_column_counts(dtype, k):
     """k = 1, 5, 8 and 11 columns (a pass of kv = 1; a padded pass of 8;
     a full one; a full one and a padded pass of 4): every column is the
-    single-vector SpMV, bit for bit."""
+    reference-order single-vector SpMV, bit for bit, and op(x) (one K6
+    step) matches the golden as the columns do."""
     rng = np.random.default_rng(0)
     csr = tsp.mixed_categories(300, rng)
     op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
@@ -169,17 +190,22 @@ def test_matmat_column_counts(dtype, k):
     assert Y.shape == (csr.n_rows, k)
     _check_golden(csr, X, Y, dtype)
     for j in range(k):
-        np.testing.assert_array_equal(Y[:, j], op(X[:, j]))
+        np.testing.assert_array_equal(Y[:, j], _glue_host(op, X[:, j]))
+    _check_golden(csr, X, np.stack([op(X[:, j]) for j in range(k)], 1),
+                  dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 @pytest.mark.parametrize("name", ["mixed", "scatter", "route", "subplan"])
 def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
     """Column j of a pass does not change, bit for bit, when the other
-    columns change (to other vectors, to zero padding), at kv = 4 and 8."""
+    columns change (to other vectors, to zero padding), at kv = 4 and 8;
+    it is the reference-order spmv_fn on its table, and op(x) (one K6
+    step) matches the golden."""
     rng = np.random.default_rng(0)
     csr, op = _operator(name, dtype, monkeypatch, rng)
-    x = op._prep_x(rng.standard_normal(csr.n_cols))
+    xh = rng.standard_normal(csr.n_cols)
+    x = op._prep_x(xh)
     want = None
     for kv in (4, 8):
         for j in (0, kv - 1):
@@ -193,7 +219,8 @@ def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
                                kv)[j]
                 want = y if want is None else want
                 assert torch.equal(y, want), (kv, j, fill)
-    assert torch.equal(want, op.device_call(x))
+    assert torch.equal(want, _glue_call(op, x))
+    _check_golden(csr, xh[:, None], op(xh)[:, None], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
