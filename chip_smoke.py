@@ -115,8 +115,24 @@ Phases, one or more printed lines each, every one raising on failure:
      4-chip operator's time per SpMV (resident and streamed) beside one
      operator's on the same matrix, and the all-gather alone.  Four chips
      on one card show the cost of partitioning, not scaling.
-Phases 4, 7, 8 and 9 each set the kernels' launch counts to 0 before they
-run and read them after; the kernels line carries phase 4's, but for
+ 10. the tile plan (build_plan) and its executor, PyTorch ops with no
+     kernel of their own (SpMVOperator(backend="xla")), on the four
+     matrices of phases 4 and 7 (cop20k_like, webbase_like, scircuit_like,
+     rmat_like; uncut) in f32, bf16 and f64: its tensors on the card, y
+     against the mass-scaled golden (for bf16 that of the bf16-rounded A
+     and x) within bench/check.py:E2E_TOL, no K1-K6 launch; a [tile] line
+     each with build_plan's seconds, value slots per nnz, us per SpMV of
+     a chain of 10 eager and graphed, and beside them, in the same run,
+     the resident K6 step, the streamed SpMV (one K6 step each) and
+     graphed cuSPARSE, and the device kernels of one tile SpMV (profiler;
+     in f32 their device time by kernel, a [profile] line); then
+     MultiChipSpMV(backend="xla") with 4 chips on the card, on the
+     dry run's second input (mixed_categories(160 * 4) from its generator,
+     seed 11) and phase 9's power-law input, in f32 and f64, against the
+     golden, no K1-K6 launch, its time per SpMV beside the windowed 4-chip
+     operator's.
+Phases 4, 7, 8, 9 and 10 each set the kernels' launch counts to 0 before
+they run and read them after; the kernels line carries phase 4's, but for
 K1/K3, which no user path with a stream runs any more: theirs are counted
 over the reference-order run at the end of phase 4, as T1-T4's are over
 their sweeps.  It then
@@ -961,6 +977,138 @@ def multichip_phase(dev, card):
     return launches
 
 
+def tile_phase(dev, card, arms):
+    """Phase 10 (module docstring) on ``arms`` [(name, csr, WPlan,
+    dtypes)], phase 7's plans of the four matrices.  Raises on a failed
+    check."""
+    import numpy as np
+    import torch
+    import dasp_tpu_torch as dt
+    from dasp_tpu_torch.bench.baselines import CuSparseBaseline
+    from dasp_tpu_torch.bench.check import E2E_TOL, golden_mass, scaled_error
+    from dasp_tpu_torch.bench.harness import bench_spmv
+    from dasp_tpu_torch.ops import cuda_backend as cb, \
+        kernel_launches as read_counts, zero_kernel_launches as zero_counts
+    from dasp_tpu_torch.ops.xla_backend import TileSpMV
+    from dasp_tpu_torch.parallel import MultiChipSpMV
+    from dasp_tpu_torch.sparse import mixed_categories, powerlaw_like
+
+    def held(what, y, golden, scale, d):
+        e = scaled_error(y, golden, scale)
+        if not e <= E2E_TOL[d]:
+            raise AssertionError(f"tile {what}: error {e:.3e} over the limit"
+                                 f" {E2E_TOL[d]} (mass-scaled)")
+        return e
+
+    def no_kernels(what):
+        moved = {k: n for k, n in read_counts().items() if n}
+        if moved:
+            raise AssertionError(f"tile {what}: the tile executor launched "
+                                 f"K1-K6: {moved}")
+
+    def tensors_of(tree):
+        if torch.is_tensor(tree):
+            yield tree
+        elif isinstance(tree, (dict, list)):
+            for v in (tree.values() if isinstance(tree, dict) else tree):
+                yield from tensors_of(v)
+
+    def per_spmv(step):
+        """(eager, graph) us per SpMV of a step of CHAIN SpMVs."""
+        e, g = eager_and_graph(step, 3)
+        return e / CHAIN * 1e3, g / CHAIN * 1e3
+
+    for name, csr, wplan, dtypes in arms:
+        t = time.perf_counter()
+        plan = dt.build_plan(csr)
+        build = time.perf_counter() - t
+        slots = plan.stats["fill0_nnz_total"] / csr.nnz
+        x = np.random.default_rng(1).standard_normal(csr.n_cols)
+        for d in dtypes:
+            t = time.perf_counter()
+            op = dt.SpMVOperator(plan, d, backend="xla", device=dev)
+            lower = time.perf_counter() - t
+            if not (isinstance(op, TileSpMV) and op.device.type == "cuda"
+                    and all(v.device.type == "cuda"
+                            for v in tensors_of(op._arrays))):
+                raise AssertionError(f"tile {name} {d}: not on the card")
+            golden, scale = golden_mass(csr, x, d)
+            x_dev = op._prep_x(x)
+            zero_counts()
+            y = op(x)
+            y_loop = cb._to_host(op.timing_loop(CHAIN - 1)(x_dev))
+            torch.cuda.synchronize()
+            no_kernels(f"{name} {d}")
+            e = held(f"{name} {d} y", y, golden, scale, d)
+            e_l = held(f"{name} {d} timing_loop({CHAIN - 1})", y_loop,
+                       golden, scale, d)
+            tile = per_spmv(lambda loop=op.timing_loop(CHAIN - 1),
+                            x_dev=x_dev: loop(x_dev))
+            n_kern = sum(kernel_counts(lambda: op.device_call(x_dev)))
+            rop = dt.SpMVOperator(wplan, d, device=dev)
+            sop = dt.SpMVOperator(wplan, d, device=dev, force_streamed=True)
+            base = CuSparseBaseline(csr, d, dev)
+            held(f"{name} {d} cuSPARSE", base(x), *golden_mass(csr, x, d), d)
+            others = {
+                "resident K6 step": per_spmv(
+                    lambda loop=rop.timing_loop(CHAIN), x2d=rop._prep_x(x):
+                        loop(x2d))[1],
+                "streamed (one K6 step a SpMV)": per_spmv(
+                    lambda loop=sop.timing_loop(CHAIN - 1),
+                    x2d=sop._prep_x(x): loop(x2d))[1],
+                f"cuSPARSE ({base.compute_dtype})": per_spmv(
+                    lambda loop=base.timing_loop(CHAIN - 1),
+                    xb=base._prep_x(x): loop(xb))[1]}
+            log(f"[tile] {name} {csr.n_rows}x{csr.n_cols} nnz={csr.nnz} {d}: "
+                f"build_plan {build:.2f} s, {slots:.3f} value slots per nnz "
+                f"({len(plan.shorts)} short streams, pair13 "
+                f"{plan.pair13 is not None}, {len(plan.sell)} sell and "
+                f"{len(plan.remainder)} remainder groups, long rows "
+                f"{plan.long.n_rows if plan.long else 0}); lower+upload "
+                f"{lower:.2f} s; err {e:.3e}, timing_loop {e_l:.3e} "
+                f"(mass-scaled, limit {E2E_TOL[d]}); K1-K6 launches 0; us "
+                f"per SpMV, chain of {CHAIN}: tile eager {tile[0]:.1f} / "
+                f"graph {tile[1]:.1f}; " + ", ".join(
+                    f"{k} graph {v:.1f}" for k, v in others.items())
+                + f"; device kernels per tile SpMV {n_kern} (profiler) "
+                f"[{card}]")
+            if d == "f32":
+                log(f"[profile] tile {name} {d}, one device_call, eager: "
+                    + profile_line(lambda: op.device_call(x_dev), 4))
+            del op, rop, sop, base
+
+    # four tile-plan chips on the one card
+    devices = [dev] * MC_CHIPS
+    rng = np.random.default_rng(11)
+    pl = powerlaw_like(100_000, 1.8, 500_000, rng, col_alpha=1.6)
+    x_pl = rng.standard_normal(pl.n_cols)
+    mixed = mixed_categories(160 * MC_CHIPS, rng)
+    x_mx = rng.standard_normal(mixed.n_cols)
+    for label, m, x in (("dry run mixed", mixed, x_mx),
+                        ("powerlaw", pl, x_pl)):
+        for d in ("f32", "f64"):
+            t = time.perf_counter()
+            op = MultiChipSpMV(m, devices=devices, dtype=d, backend="xla")
+            build = time.perf_counter() - t
+            zero_counts()
+            y = op(x)
+            torch.cuda.synchronize()
+            no_kernels(f"{label} x{MC_CHIPS} {d}")
+            e = held(f"{label} x{MC_CHIPS} {d}", y, *golden_mass(m, x, d), d)
+            four = bench_spmv(op, x, d, iters=10)
+            win = MultiChipSpMV(m, devices=devices, dtype=d)
+            four_w = bench_spmv(win, x, d, iters=10)
+            log(f"[tile] MultiChipSpMV(backend=\"xla\") {label} "
+                f"{m.n_rows}x{m.n_cols} nnz={m.nnz} {d} x{MC_CHIPS} on {dev}: "
+                f"build {build:.2f} s, balance {op.stats['balance']:.3f}; err "
+                f"{e:.3e} (mass-scaled, limit {E2E_TOL[d]}); K1-K6 launches "
+                f"0; us per SpMV (harness, chain {four.timed_iters}) "
+                f"{four.seconds_per_iter * 1e6:.2f}, the windowed 4-chip "
+                f"operator ({'resident' if win.resident else 'streamed'}) "
+                f"{four_w.seconds_per_iter * 1e6:.2f} [{card}]")
+            del op, win
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
@@ -975,11 +1123,12 @@ def main():
     import numpy as np
     import dasp_tpu_torch as dt
     from dasp_tpu_torch import wplan
-    from dasp_tpu_torch.bench.__main__ import build_native_router, card_line
+    from dasp_tpu_torch.bench.__main__ import card_line
     from dasp_tpu_torch.bench.baselines import cusparse_matrix
     from dasp_tpu_torch.bench.check import E2E_TOL, golden_mass, scaled_error
     from dasp_tpu_torch.bench.harness import copy_rate_gbs, event_seconds
     from dasp_tpu_torch.bench.suite import build_suite
+    from dasp_tpu_torch.io.build import ensure_built
     from dasp_tpu_torch.ops import _build, cuda_backend as cb, \
         kernel_launches as read_counts, zero_kernel_launches as zero_counts
     from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
@@ -1024,8 +1173,11 @@ def main():
     # an exported CXX without OpenMP support fails the Makefile's build,
     # and the numpy fallback packs the webbase_like arm far slower
     t = time.perf_counter()
-    build_native_router()
-    log(f"[build] native host library (make CXX=g++): "
+    if ensure_built(cxx="g++") is None:
+        raise RuntimeError("native host library build failed (the reason "
+                           "is on stderr)")
+    log(f"[build] native host library (make CXX=g++, under a lock, "
+        f"renamed whole): "
         f"{time.perf_counter() - t:.2f} s")
 
     # -- 3. kernels vs plain on the entry fixture ----------------------------
@@ -1657,7 +1809,7 @@ def main():
             raise AssertionError(
                 f"{name} {d} {variant}: the harness and the smoke's clock "
                 f"disagree on one loop (see the line above)")
-    del arms, bench_arms
+    del bench_arms
     log(f"[bench] done in {time.perf_counter() - t:.2f} s")
 
     # -- 8. the examples ---------------------------------------------------------
@@ -1676,6 +1828,12 @@ def main():
     t = time.perf_counter()
     multichip_phase(dev, card)
     log(f"[multichip] done in {time.perf_counter() - t:.2f} s")
+
+    # -- 10. the tile plan and its executor ----------------------------------
+    t = time.perf_counter()
+    tile_phase(dev, card, [a for a in arms if a[0] != "huge_columns"])
+    del arms
+    log(f"[tile] done in {time.perf_counter() - t:.2f} s")
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"dasp_tpu_torch/csrc/{s}",

@@ -9,8 +9,11 @@ multi-vector instances, outgather, the resident executor), which run as
 their plain PyTorch versions on CPU tensors.  ``python -m
 dasp_tpu_torch.bench`` benchmarks it against cuSPARSE and writes the
 reference's CSV schema; ``dasp_tpu_torch.examples`` holds the CG and
-PageRank consumers, whose iterations stay on the device.  It imports no
-JAX.
+PageRank consumers, whose iterations stay on the device.  The JAX
+package's second plan format, the tile plan (``build_plan``, the DASP
+paper's own row categories), runs through its portable executor,
+PyTorch ops without a kernel of their own: ``SpMVOperator(csr,
+backend="xla")`` or a prebuilt ``DaspPlan``.  It imports no JAX.
 
 Quick start::
 
@@ -24,6 +27,7 @@ Quick start::
 from .config import DaspConfig, DEFAULT_CONFIG
 from .sparse import CSRMatrix, from_coo
 from .analyze import categorize, RowCategories
+from .plan import DaspPlan, build_plan
 from .wplan import WPlan, build_wplan
 from .spmv import SpMVOperator, spmv
 from .io import load_matrix, read_mtx, write_mtx
@@ -48,6 +52,7 @@ def verify(csr: CSRMatrix, y, x, rtol: float = 1e-5) -> bool:
 
 __all__ = [
     "DaspConfig", "DEFAULT_CONFIG", "CSRMatrix", "from_coo", "categorize",
-    "RowCategories", "WPlan", "build_wplan", "SpMVOperator", "spmv",
-    "load_matrix", "read_mtx", "write_mtx", "verify", "__version__",
+    "RowCategories", "DaspPlan", "build_plan", "WPlan", "build_wplan",
+    "SpMVOperator", "spmv", "load_matrix", "read_mtx", "write_mtx",
+    "verify", "__version__",
 ]

@@ -67,6 +67,7 @@ from .record import append_record, record_from
 from .suite import build_suite, geomean
 from ..config import DEFAULT_CONFIG, DaspConfig
 from ..io import load_matrix
+from ..io.build import ensure_built
 from ..ops import kernel_launches
 from ..ops.cuda_backend import _to_host
 from ..spmv import SpMVOperator
@@ -149,19 +150,6 @@ def install_handlers(summary: Summary, deadline: float):
         for sig, handler in old.items():
             signal.signal(sig, handler)
     return restore
-
-
-def build_native_router() -> None:
-    """Build the packer's native host library (``native/``: the Matrix
-    Market parser and the window router) with g++ named explicitly: an
-    exported CXX without OpenMP support fails the Makefile's own build,
-    and the numpy fallback packs the large arms far slower."""
-    mk = subprocess.run(["make", "-C", os.path.join(_ROOT, "native"),
-                         "CXX=g++"], capture_output=True, text=True,
-                        timeout=600)
-    if mk.returncode != 0:
-        raise RuntimeError(f"native host library build failed:\n"
-                           f"{mk.stdout}{mk.stderr}")
 
 
 def card_line() -> str:
@@ -474,7 +462,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         log(f"# device: {torch.cuda.get_device_name(device)}, torch "
             f"{torch.__version__}, cuda {torch.version.cuda}; copy rate "
             f"{copy_rate_gbs(device):.0f} GB/s (read + write, 1 GiB)")
-        build_native_router()
+        # g++ named explicitly: an exported CXX without OpenMP support
+        # fails the Makefile's build, and the numpy fallback packs the
+        # large arms far slower
+        if ensure_built(cxx="g++") is None:
+            raise RuntimeError("native host library build failed (the "
+                               "reason is on stderr)")
     else:
         print(f"{device.type} (torch {torch.__version__})", flush=True)
 

@@ -41,29 +41,10 @@ def _find_lib():
             return c
     # The .so is a build artifact (gitignored); (re)build it on first use
     # so a fresh checkout never silently falls back to the slow Python
-    # router, and a stale .so never hides new native entry points.
-    if os.path.exists(os.path.join(srcdir, "Makefile")):
-        import subprocess
-        import sys
-        try:
-            subprocess.run(["make", "-C", srcdir], check=True,
-                           capture_output=True, timeout=120)
-        except Exception as e:
-            # A broken toolchain must not SILENTLY fall back to the slow
-            # Python router — say why the build failed, once.
-            tail = ""
-            stderr = getattr(e, "stderr", None)
-            if stderr:
-                tail = ": " + stderr.decode("utf-8", "replace").strip(
-                    ).splitlines()[-1][:200]
-            print(f"dasp_tpu: native build failed ({e.__class__.__name__}"
-                  f"{tail}); using the slow Python fallback",
-                  file=sys.stderr)
-            return None
-        c = os.path.join(srcdir, "libdasp_host.so")
-        if os.path.exists(c):
-            return c
-    return None
+    # router, and a stale .so never hides new native entry points.  The
+    # build runs under a lock and lands whole (build.ensure_built).
+    from .build import ensure_built
+    return ensure_built(srcdir=srcdir)
 
 
 def _load():

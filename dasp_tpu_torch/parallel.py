@@ -22,10 +22,19 @@ host devices share one CPU.  Tests pass ``["cpu"] * 8``; one H100 runs
 ``["cuda:0"] * 4``.  ``torch.distributed`` is not used: NCCL refuses two
 ranks on one GPU, so a one-card machine could only run a world of one.
 
+Two per-chip executors, as in the reference (``backend=``): "pallas" (the
+default) runs each chip's windowed plan on the port's kernels; "xla" runs
+each chip's tile plan (``build_plan``) through the scatter executor
+(``ops/xla_backend.spmv_scatter_fn``, PyTorch ops), on an x of
+ceil(n_cols / chips) * chips entries where the windowed chips take the
+(s_rows, 128) x table.  The relabel, strips, all-gather and stitch are
+shared.
+
 Each chip runs its own program, so none of the reference's SPMD
 machinery is needed: no ``harmonize_wplans`` (padding every chip's
-streams to one shape signature), no global class pin, no shared outgather
-trim, no ``long_gat`` padding, no ``resident.prepare(uniform=True)``.
+streams to one shape signature), no ``_harmonize`` of the xla chips'
+arrays, no global class pin, no shared outgather trim, no ``long_gat``
+padding, no ``resident.prepare(uniform=True)``.
 ``stats["pad_vregs"]`` is therefore all zeros.  The COO residue runs on
 the device inside each chip's operator, as on one device (the reference
 adds it on the host, :537-546).  f64 chips run resident (K6 in fp64),
@@ -37,13 +46,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from .config import DaspConfig, DEFAULT_CONFIG
+from .ops import xla_backend
 from .ops.cuda_backend import TAP, TorchSpMV, _to_host, prep_x
+from .plan import build_plan
 from .sparse import CSRMatrix
 from .wplan import LANES, build_wplan
 
@@ -148,6 +160,24 @@ def on_device(dev: torch.device):
         contextlib.nullcontext()
 
 
+class _TileChip:
+    """One chip of the xla backend: its strips' tile plan, lowered for the
+    scatter executor on its device (never resident)."""
+
+    resident = False
+
+    def __init__(self, csr: CSRMatrix, config: DaspConfig, dtype: str,
+                 dev: torch.device):
+        t0 = time.perf_counter()
+        self.plan = build_plan(csr, config)
+        self._meta, self._arrays = xla_backend.plan_to_scatter_arrays(
+            self.plan, dtype, dev)
+        self.preprocess_seconds = time.perf_counter() - t0
+
+    def device_call(self, x: torch.Tensor) -> torch.Tensor:
+        return xla_backend.spmv_scatter_fn(self._meta, self._arrays, x)
+
+
 class MultiChipSpMV:
     """Row-partitioned SpMV over a list of devices: each chip computes
     y_chip = A_chip @ allgather(x) for its strips of rows.
@@ -161,23 +191,30 @@ class MultiChipSpMV:
         partitioning (all chips gather one x, so they share one column
         space), and every chip packs with relabel and row_sort off, so
         its y keeps the strips' row order.
-      force_streamed: every chip's operator built streamed (``resident``
-        is then False), as ``SpMVOperator(force_streamed=True)``.
+      backend: "pallas" (each chip a windowed ``TorchSpMV``) or "xla" (each
+        chip's tile plan through the scatter executor; never resident).
+      force_streamed: every chip's windowed operator built streamed
+        (``resident`` is then False), as ``SpMVOperator(force_streamed=
+        True)``.
 
     ``stats``: ``slab_nnz`` (nnz per chip), ``balance`` (max / mean of
-    it), ``real_vregs`` (value-tile vregs per chip), ``pad_vregs`` (all
-    zeros: no chip is padded to another's shapes), ``resident``.
+    it), ``resident``; windowed, also ``real_vregs`` (value-tile vregs per
+    chip) and ``pad_vregs`` (all zeros: no chip is padded to another's
+    shapes).
     """
 
     def __init__(self, csr: CSRMatrix, devices=None, dtype: str = "f32",
-                 config: DaspConfig = DEFAULT_CONFIG, *,
-                 force_streamed: bool = False):
+                 config: DaspConfig = DEFAULT_CONFIG,
+                 backend: str = "pallas", *, force_streamed: bool = False):
+        if backend not in ("pallas", "xla"):
+            raise ValueError("backend must be 'pallas' or 'xla'")
         devices = default_devices() if devices is None else devices
         self.devices = [_device(d) for d in devices]
         self.n_devices = len(self.devices)
         if not self.n_devices:
             raise ValueError("MultiChipSpMV: no devices given")
         self.dtype = dtype
+        self.backend = backend
         self.n_rows, self.n_cols = csr.n_rows, csr.n_cols
         self.nnz = csr.nnz
         self.stats = {}
@@ -214,23 +251,34 @@ class MultiChipSpMV:
         self.chips = []
         for strips, dev in zip(self.strips, self.devices):
             sub = strips_csr(csr, strips)
-            self.chips.append(
-                TorchSpMV(build_wplan(sub, config), dev, None, dtype,
-                          force_streamed) if sub.n_rows else None)
+            if not sub.n_rows:
+                self.chips.append(None)
+            elif backend == "xla":
+                self.chips.append(_TileChip(sub, config, dtype, dev))
+            else:
+                self.chips.append(TorchSpMV(build_wplan(sub, config), dev,
+                                            None, dtype, force_streamed))
         live = [c for c in self.chips if c is not None]
         if not live:
             raise ValueError("MultiChipSpMV: the matrix has no rows")
-        self._meta = live[0]._meta
-        if any(c._meta.s_rows != self._meta.s_rows for c in live):
-            raise ValueError("chips disagree on the x table's rows")
-        self.overflows = [c.plan.overflow if c is not None else None
-                          for c in self.chips]
-        self.stats["real_vregs"] = [
-            sum(s.n_vregs for s in c.plan.streams) if c is not None else 0
-            for c in self.chips]
-        self.stats["pad_vregs"] = [0] * self.n_devices
         self.stats["resident"] = self.resident
         self.preprocess_seconds = sum(c.preprocess_seconds for c in live)
+        if backend == "xla":
+            # the reference's x: n_cols padded to a multiple of the chips
+            self._x_shape = (-(-self.n_cols // self.n_devices)
+                             * self.n_devices,)
+            self.overflows = [None] * self.n_devices
+        else:
+            self._meta = live[0]._meta
+            if any(c._meta.s_rows != self._meta.s_rows for c in live):
+                raise ValueError("chips disagree on the x table's rows")
+            self._x_shape = (self._meta.s_rows, LANES)
+            self.overflows = [c.plan.overflow if c is not None else None
+                              for c in self.chips]
+            self.stats["real_vregs"] = [
+                sum(s.n_vregs for s in c.plan.streams) if c is not None
+                else 0 for c in self.chips]
+            self.stats["pad_vregs"] = [0] * self.n_devices
 
     @property
     def resident(self) -> bool:
@@ -249,16 +297,21 @@ class MultiChipSpMV:
     def _prep_x(self, x) -> List[torch.Tensor]:
         """Host x -> its padded (and relabeled) x table split by rows into
         one piece per chip, each on its chip's device: float64 for f64,
-        float32 otherwise (bf16 chips take an f32 x)."""
-        flat = torch.from_numpy(prep_x(self._meta, x, self.col_perm)
-                                ).reshape(-1)
+        float32 otherwise (windowed bf16 chips take an f32 x; xla bf16
+        chips x rounded to bf16, as the reference's)."""
+        if self.backend == "xla":
+            flat = xla_backend.prep_x(self.dtype, x, self.n_cols,
+                                      self._x_shape[0], self.col_perm)
+        else:
+            flat = torch.from_numpy(prep_x(self._meta, x, self.col_perm)
+                                    ).reshape(-1)
         return [p.to(dev) for p, dev in
                 zip(torch.tensor_split(flat, self.n_devices), self.devices)]
 
     def gather(self, pieces: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The all-gather: each chip's (s_rows, 128) x table, assembled on
-        its device from every piece (None for a chip without rows)."""
-        S = self._meta.s_rows
+        """The all-gather: each chip's x ((s_rows, 128) table windowed,
+        flat xla), assembled on its device from every piece (None for a
+        chip without rows)."""
         out = []
         for chip, dev in zip(self.chips, self.devices):
             if chip is None:
@@ -266,7 +319,7 @@ class MultiChipSpMV:
                 continue
             with on_device(dev):
                 out.append(torch.cat([p.to(dev, non_blocking=True)
-                                      for p in pieces]).view(S, LANES))
+                                      for p in pieces]).view(self._x_shape))
         return out
 
     def step(self, pieces: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -21,8 +21,12 @@ from dasp_tpu_torch.bench import (BenchResult, CuSparseBaseline,
 from dasp_tpu_torch.bench import __main__ as cli
 from dasp_tpu_torch.bench.record import FIELDS
 from dasp_tpu_torch.sparse import mixed_categories
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 
 DTYPES = ("f32", "bf16", "f64")
 

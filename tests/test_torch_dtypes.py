@@ -34,8 +34,12 @@ import dasp_tpu_torch as dt
 from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.config import DaspConfig
 from dasp_tpu_torch.ops import cuda_backend as cb
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = {"f32": 2e-5, "f64": 1e-10, "bf16": 5e-2}
 TOL_BF16_VS_REF = 1e-2
 

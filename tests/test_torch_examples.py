@@ -12,8 +12,12 @@ import torch
 import dasp_tpu
 import dasp_tpu_torch as dt
 from dasp_tpu_torch.examples import cg_solver, pagerank
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 
 EX = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")

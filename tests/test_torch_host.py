@@ -5,8 +5,10 @@ import dataclasses
 import inspect
 import os
 import re
+import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -19,14 +21,18 @@ from dasp_tpu.wplan import build_wplan as ref_build_wplan
 from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.wplan import build_wplan
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # numpy-only modules the port carries as byte-for-byte copies: importing
 # any dasp_tpu module runs dasp_tpu/__init__.py, which imports jax
-COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py",
+COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py", "plan.py",
           "io/__init__.py", "io/mmio.py", "io/native.py",
           "bench/suite.py", "bench/fem.py", "bench/record.py",
           "analyze.py"]
@@ -35,11 +41,23 @@ COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py",
 # copy cites it as "reference README.md"); wplan.py's long-row packer
 # tested `_nat is not None`, but _native_router() returns False, not None,
 # without native/libdasp_host.so, so the no-library fallback crashed on
-# long rows (the copy tests `_nat`; see test_no_native_router_packs_long_rows)
+# long rows (the copy tests `_nat`; see test_no_native_router_packs_long_rows);
+# io/native.py's _find_lib ran a bare `make`, which writes the library in
+# place, so a process loading it during another's build read a short file
+# (the copy builds through io/build.ensure_built, under a lock, to a name of
+# its own, renamed whole; see
+# test_concurrent_builds_never_expose_a_short_library)
 COPY_EDITS = {"bench/fem.py": (rb"``/[\w/]+/README\.md",
                                b"``reference README.md"),
               "wplan.py": (rb"if _nat is not None and scalar_owners",
-                           b"if _nat and scalar_owners")}
+                           b"if _nat and scalar_owners"),
+              "io/native.py": (
+                  rb"(?s)(new native entry points\.)\n    if os\.path\.exists"
+                  rb"\(os\.path\.join\(srcdir, \"Makefile\"\)\):\n.*?"
+                  rb"\n    return None\n",
+                  rb"\1  The\n    # build runs under a lock and lands whole "
+                  rb"(build.ensure_built).\n    from .build import "
+                  rb"ensure_built\n    return ensure_built(srcdir=srcdir)\n")}
 
 
 def _split_fixture(rng, n=26 * 64 * 128):
@@ -122,6 +140,64 @@ def test_host_module_is_identical_copy(rel):
     assert ours == ref, f"dasp_tpu_torch/{rel} drifted from dasp_tpu/{rel}"
 
 
+
+def test_native_library_loaded():
+    """Both packages' loaders find the library this module's import built:
+    a lost build race shows here, once, and not as the long-row packs of
+    every later test falling back to numpy."""
+    from dasp_tpu.io import native as ref_native
+    from dasp_tpu_torch.io import native
+    assert native._load() is not None
+    assert ref_native._load() is not None
+
+
+_BUILD_AND_LOAD = r"""
+import ctypes, sys
+from dasp_tpu_torch.io.build import ensure_built
+path = ensure_built(srcdir=sys.argv[1])
+assert path is not None, "the build failed"
+lib = ctypes.CDLL(path)
+assert lib.dasp_read_mtx and lib.dasp_route_vregs
+print("LOADED", path)
+"""
+
+
+def test_concurrent_builds_never_expose_a_short_library(tmp_path):
+    """Build processes started together and during the build, against a
+    copy of native/ with no library: each loads a whole library, the
+    library's path never holds a file of another size than the finished
+    one, and no temporary file is left behind."""
+    src = tmp_path / "native"
+    src.mkdir()
+    for f in os.listdir(os.path.join(REPO, "native")):
+        if f.endswith(".cpp") or f == "Makefile":
+            shutil.copy(os.path.join(REPO, "native", f), src / f)
+    lib = src / "libdasp_host.so"
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def start():
+        return subprocess.Popen(
+            [sys.executable, "-c", _BUILD_AND_LOAD, str(src)], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    procs = [start() for _ in range(4)]
+    sizes = set()
+    t0 = time.monotonic()
+    late = False
+    while any(p.poll() is None for p in procs):
+        if os.path.exists(lib):
+            sizes.add(os.path.getsize(lib))
+        if not late and time.monotonic() - t0 > 2.0:
+            procs += [start() for _ in range(2)]
+            late = True
+        assert time.monotonic() - t0 < 240, "the build processes hung"
+        time.sleep(0.002)
+    outs = [p.communicate(timeout=60) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and "LOADED" in out, out + err
+    assert sizes <= {os.path.getsize(lib)}, sizes
+    assert not [f for f in os.listdir(src) if f.endswith(".tmp")]
+
 def test_categorize_matches_reference():
     """The row census (analyze.py, exported as in the JAX package) on the
     fixture every row family passes through."""
@@ -144,6 +220,22 @@ def test_gc_paused_is_identical_copy():
 def test_build_wplan_identical(name):
     csr = CASES[name](np.random.default_rng(0))
     _assert_same(build_wplan(csr), ref_build_wplan(_to_ref(csr)), "plan")
+
+
+@pytest.mark.parametrize("name", list(LOWER_CASES))
+def test_build_plan_identical(name):
+    """The tile plan (plan.py, a copy): built by both packages, and carried
+    across by plan_from_reference, field for field the same."""
+    from dasp_tpu.plan import build_plan as ref_build_plan
+    from dasp_tpu_torch import build_plan
+    from dasp_tpu_torch.ops.xla_backend import plan_from_reference
+    csr = LOWER_CASES[name](np.random.default_rng(0))
+    ref = ref_build_plan(_to_ref(csr))
+    ours = build_plan(csr)
+    _assert_same(ours, ref, "plan")
+    carried = plan_from_reference(ref)
+    assert type(carried) is type(ours)
+    _assert_same(carried, ours, "carried")
 
 
 @pytest.mark.parametrize("name", list(LOWER_CASES))
@@ -377,6 +469,12 @@ err = np.abs(mc(x) - golden) / np.maximum(np.abs(golden), 1.0)
 assert mc.resident and err.max() <= 2e-5, err.max()
 res = bench.bench_spmv(op, x, "f32", iters=2, trials=2)
 assert res.gflops > 0 and bench.record_from(op.plan, res, "m", "f32")
+tile = dasp_tpu_torch.SpMVOperator(csr, backend="xla", device="cpu")
+err = np.abs(tile(x) - golden) / np.maximum(np.abs(golden), 1.0)
+assert type(tile).__name__ == "TileSpMV" and err.max() <= 2e-5, err.max()
+mc = MultiChipSpMV(csr, devices=["cpu"] * 3, dtype="f64", backend="xla")
+err = np.abs(mc(x) - golden) / np.maximum(np.abs(golden), 1.0)
+assert err.max() <= 1e-10, err.max()
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("NO_JAX_OK", float(err.max()))

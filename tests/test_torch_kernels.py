@@ -29,8 +29,12 @@ from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
 from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
 from dasp_tpu_torch.wplan import K_SOURCES
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = 1e-6
 TOL_F64 = 1e-10
 

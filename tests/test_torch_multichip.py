@@ -20,8 +20,12 @@ from dasp_tpu_torch.ops import resident
 from dasp_tpu_torch.sparse import mixed_categories, powerlaw_like
 from dasp_tpu_torch.spmv import SpMVOperator
 from dasp_tpu_torch.wplan import build_wplan
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 
 CPU8 = ["cpu"] * 8
 TOL = {"f32": 2e-5, "f64": 1e-10}
@@ -148,6 +152,57 @@ def test_multichip_powerlaw(rng):
     x = rng.standard_normal(csr.n_cols)
     assert _scaled(op(x), csr.spmv(x)) <= 2e-5
 
+
+
+# the same two tests on the port's tile-plan chips (backend="xla"); the
+# JAX package's xla chips are compared in tests/test_torch_xla_backend.py
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_multichip_xla_matches_golden(rng, dtype):
+    csr = mixed_categories(900, rng)
+    op = par.MultiChipSpMV(csr, devices=CPU8, dtype=dtype, backend="xla")
+    assert op.n_devices == 8 and op.backend == "xla"
+    x = rng.standard_normal(csr.n_cols)
+    assert _scaled(op(x), csr.spmv(x)) <= (1e-5 if dtype == "f32"
+                                           else 1e-10)
+
+
+def test_multichip_xla_powerlaw(rng):
+    csr = powerlaw_like(800, 1.8, 4000, rng)
+    op = par.MultiChipSpMV(csr, devices=CPU8, dtype="f32", backend="xla")
+    x = rng.standard_normal(csr.n_cols)
+    assert _scaled(op(x), csr.spmv(x)) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
+def test_multichip_xla_timing_loop_and_empty_chips(rng, dtype):
+    """300 rows on eight tile-plan chips: five get no strip and an empty
+    y; the chained loop (streamed: one step a SpMV, y[0] * TAP into every
+    piece) agrees with one step, leaves the pieces unwritten and launches
+    no kernel of the windowed path; bf16 holds the bench's limit on the
+    mass-scaled error."""
+    from dasp_tpu_torch.ops import kernel_launches, zero_kernel_launches
+    csr = mixed_categories(300, rng)
+    op = par.MultiChipSpMV(csr, devices=CPU8, dtype=dtype, backend="xla")
+    assert sum(c is None for c in op.chips) == 5
+    assert not op.resident and op.overflows == [None] * 8
+    assert "pad_vregs" not in op.stats
+    x = rng.standard_normal(csr.n_cols)
+    pieces = op._prep_x(x)
+    kept = [p.clone() for p in pieces]
+    zero_kernel_launches()
+    y_step = op.stitch(op.step(pieces))
+    y_loop = op.stitch(op.timing_loop(3)(pieces))
+    assert not any(kernel_launches().values())
+    assert all(torch.equal(a, b) for a, b in zip(pieces, kept))
+    golden, scale = check.golden_mass(csr, x, dtype)
+    assert check.scaled_error(y_step, golden, scale) <= check.E2E_TOL[dtype]
+    assert check.scaled_error(y_loop, y_step, scale) <= check.E2E_TOL[dtype]
+
+
+def test_multichip_rejects_unknown_backend(rng):
+    with pytest.raises(ValueError, match="backend"):
+        par.MultiChipSpMV(mixed_categories(100, rng), devices=CPU8,
+                          backend="tpu")
 
 def test_multichip_scale_balance(rng):
     """120,000 rows with a power-law tail: every nonzero on a chip, the

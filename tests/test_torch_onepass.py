@@ -38,8 +38,12 @@ from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops import resident
 from dasp_tpu_torch.ops.outgather import outgather_plain
 from dasp_tpu_torch.wplan import LANES
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = {"f32": 2e-5, "f64": 1e-10, "bf16": 5e-2}
 DTYPES = ("f32", "bf16", "f64")
 

@@ -32,8 +32,12 @@ from dasp_tpu_torch.probes import resident_probe as t4
 from dasp_tpu_torch.probes import roundcost_ab as t2
 from dasp_tpu_torch.probes import stream_bench2 as t3
 from tools import gather_bench as tool_t1
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = 2e-6
 NV = 128                    # one TPU grid step of BV = 128 vregs
 T3_SRC = importlib.util.find_spec("tools.stream_bench2").origin

@@ -48,8 +48,12 @@ from dasp_tpu_torch.ops.colsum import colsum_plain
 from dasp_tpu_torch.ops.cuda_backend import TorchSpMV
 from dasp_tpu_torch.wplan import SUB
 from dasp_tpu_torch.probes import resident_probe as t4
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = {"f32": 1e-5, "f64": 1e-10}
 TOL_BF16_GOLDEN = 0.1
 TOL_BF16_VS_REF = 1e-2

@@ -23,8 +23,12 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from dasp_tpu_torch.probes import roundcost_ab as t2
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = 2e-6
 NV = 128
 SRC = importlib.util.find_spec("tools.roundcost_ab").origin

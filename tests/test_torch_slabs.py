@@ -11,8 +11,12 @@ from dasp_tpu.ops.pallas_backend import SlabbedPallasSpMV
 from dasp_tpu.sparse import CSRMatrix as RefCSR
 from dasp_tpu_torch import SpMVOperator
 from dasp_tpu_torch.sparse import CSRMatrix
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 
 
 def _slab_matrix(rng, n=128, m=180_000):

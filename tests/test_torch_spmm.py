@@ -32,8 +32,12 @@ from dasp_tpu_torch.config import DaspConfig
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops.colsum import colsum
 from dasp_tpu_torch.ops.colsum_multi import colsum_multi
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = {"f32": 2e-5, "f64": 1e-10, "bf16": 5e-2}
 KERNEL_TOL = 1e-6
 KERNEL_TOL_F64 = 1e-10

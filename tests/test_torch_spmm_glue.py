@@ -41,8 +41,12 @@ from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.config import DaspConfig
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops import outgather as og
+from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
+# native/libdasp_host.so, built whole before any test of either package
+# loads it: every xdist worker imports every test module first
+ensure_built()
 TOL = {"f32": 2e-5, "f64": 1e-10, "bf16": 1e-2}
 REF_TOL = {"f32": 2e-5, "f64": 2e-6, "bf16": 1e-2}
 
