@@ -20,7 +20,8 @@ Phases, one or more printed lines each, every one raising on failure:
      vector of the batched outgather against outgather_plain on its y2,
      and K6 in f32, bf16 and f64 at 1 and 3 steps, all bit for bit; the
      registers, local bytes, shared bytes and blocks a SM of every K5
-     instance are printed after the build;
+     instance, of the T1 bodies and of the T2/T3 instances phase 6
+     launches are printed after the build;
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16 (each call
@@ -67,9 +68,10 @@ Phases, one or more printed lines each, every one raising on failure:
      a torch.profiler breakdown of the f32 and f64 streamed kernel
      paths; and the T4 sweep (the rate of a chained re-read of a 6-192 MB
      stream against the copy rate);
-  6. the probes T1 (gather_bench: copy, shared-memory and L2 gathers),
-     T2 (roundcost_ab: cur/flane/fboth at P = 1..32) and T3
-     (stream_bench2: ladder A-F), at the tools' sizes: every variant
+  6. the probes T1 (gather_bench: copy, lane and sublane gathers from
+     shared memory), T2 (roundcost_ab: cur/flane/fboth at P = 1..32) and
+     T3 (stream_bench2: ladder A-F), at the tools' sizes, at 8x and at the
+     sizes the kernels treat specially (probe_edges): every variant
      against its plain version bit for bit, and the variants that compute
      K1's function against K1 on the card bit for bit; then each sweep,
      graph replays of the kernel alone and of the tools' chained step, at
@@ -570,12 +572,13 @@ def n_streams(meta):
 
 
 def compare_probes(dev):
-    """T1-T3 at the tools' sizes: every variant against its plain version
-    on the same card tensors, and the T2/T3 variants that compute K1's
-    function (T2 flane at any P, every T2 variant at P = 1, T3 B at
-    stride 8 and C at stride 2) against K1 itself, all bit for bit.
-    Returns {instance: (scaled, abs) worst error against the plain
-    versions}."""
+    """T1-T3 at the tools' sizes, at 8x and at the sizes the kernels treat
+    specially (PROBE_EDGES): every variant against its plain version on the
+    same card tensors, and the T2/T3 variants that compute K1's function
+    (T2 flane at any P, every T2 variant at P = 1, T3 B at stride 8 and C
+    at stride 2) against K1 itself, all bit for bit.  Returns ({instance:
+    (scaled, abs) worst error against the plain versions}, the sizes
+    held)."""
     import torch
     from dasp_tpu_torch.ops.colsum import colsum
     from dasp_tpu_torch.probes import gather_bench as t1, \
@@ -587,34 +590,62 @@ def compare_probes(dev):
             raise AssertionError(f"{name} {what} differs: {e} (scaled, abs)")
         return e
 
+    edges = probe_edges(t1, t2, t3)
     err = {}
-    inp = t1.make_inputs(t1.ROWS, dev)
-    err["gather_bench"] = max(
-        same("T1", body, t1.gather_probe(inp[body], inp["xw"], body),
-             t1.gather_probe_plain(inp[body], inp["xw"], body))
-        for body in t1.BODIES)
-    del inp
     worst = []
-    for P in t2.PS:
-        args = t2.make_inputs(P, t2.NV, dev)
+    for rows in edges["gather_bench"]:
+        inp = t1.make_inputs(rows, dev)
+        worst += [same("T1", f"{body} rows={rows}",
+                       t1.gather_probe(inp[body], inp["xw"], body),
+                       t1.gather_probe_plain(inp[body], inp["xw"], body))
+                  for body in t1.BODIES]
+        del inp
+    err["gather_bench"] = max(worst)
+    worst = []
+    for P, nv in edges["roundcost_ab"]:
+        args = t2.make_inputs(P, nv, dev)
         for variant in t2.VARIANTS:
             got = t2.roundcost_probe(*args, variant)
-            worst.append(same("T2", f"{variant} P={P}", got,
+            worst.append(same("T2", f"{variant} P={P} NV={nv}", got,
                               t2.roundcost_probe_plain(*args, variant)))
             if P == 1 or variant == "flane":
-                same("T2 vs K1", f"{variant} P={P}", got, colsum(*args, 8))
+                same("T2 vs K1", f"{variant} P={P} NV={nv}", got,
+                     colsum(*args, 8))
+        del args, got
     err["roundcost_ab"] = max(worst)
-    vals, x2d, steps = t3.make_inputs(t3.NV, dev)
     worst = []
-    for tag, variant, P, stride, _ in t3.LADDER:
-        wins, idx = steps[tag[0]]
-        got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
-        worst.append(same("T3", tag, got, t3.stream_probe_plain(
-            wins, vals, idx, x2d, variant, stride)))
-        if tag[0] in "BC":
-            same("T3 vs K1", tag, got, colsum(wins, vals, idx, x2d, stride))
+    for nv in edges["stream_bench2"]:
+        vals, x2d, steps = t3.make_inputs(nv, dev)
+        for tag, variant, P, stride, _ in t3.LADDER:
+            wins, idx = steps[tag[0]]
+            got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
+            worst.append(same("T3", f"{tag} NV={nv}", got,
+                              t3.stream_probe_plain(wins, vals, idx, x2d,
+                                                    variant, stride)))
+            if tag[0] in "BC":
+                same("T3 vs K1", f"{tag} NV={nv}", got,
+                     colsum(wins, vals, idx, x2d, stride))
+        del vals, x2d, steps, wins, idx, got
     err["stream_bench2"] = max(worst)
-    return err
+    return err, edges
+
+
+def probe_edges(t1, t2, t3):
+    """The sizes compare_probes holds T1-T3 at: the tools' sizes and
+    PROBE_SCALES' multiples of them, and the sizes the kernels treat
+    specially.  T1: one 2,048-row block and three (a sublane block's share
+    of the chunks ends short of the others'); T2: every P of its sweep,
+    P = 2 and P = 5 (a wins row of 6 words, staged a word a thread from
+    rows that are not 16-byte aligned); T3: 3 x 128 vregs, not a multiple
+    of the persistent grid."""
+    ps = sorted(set(t2.PS) | {2, 5})
+    return {
+        "gather_bench": [t1.ROWS * s for s in PROBE_SCALES]
+                        + [t1.B, 3 * t1.B],
+        "roundcost_ab": [(P, t2.NV * s) for s in PROBE_SCALES
+                         for P in (ps if s == 1 else t2.PS)],
+        "stream_bench2": [t3.NV * s for s in PROBE_SCALES] + [3 * 128],
+    }
 
 
 def huge_columns_matrix(rng, n_rows=262_144, n_cols=8_388_608):
@@ -1168,6 +1199,24 @@ def main():
                 f"/ {i['shared_bytes']} / {i['blocks_per_sm']}"
                 for s in (2, 4, 8) for kv in KV_SIZES
                 for i in [kernel_info(name, s, kv)]))
+    # the probes' instances as phase 6 launches them
+    figures = lambda i: (f"{i['registers']} / {i['local_bytes']} / "
+                         f"{i['shared_bytes']} / {i['blocks_per_sm']}")
+    log(f"[build] T1 gather_probe registers / local (stack and spill) bytes "
+        f"a thread / shared bytes a block / blocks a SM: " + "; ".join(
+            f"{b}: {figures(t1.kernel_info(b))}" for b in t1.BODIES)
+        + f"; the sublane block holds "
+        f"{t1.kernel_info('sublane')['slab_columns']} table columns")
+    log(f"[build] T2 colsum_probe registers / local bytes / shared bytes / "
+        f"blocks a SM: " + "; ".join(
+            f"{v} P={P}: {figures(t2.kernel_info(P, v))}"
+            for P in sorted({P for P, _ in
+                             probe_edges(t1, t2, t3)["roundcost_ab"]})
+            for v in (t2.VARIANTS[:1] if P == 1 else t2.VARIANTS)))
+    log(f"[build] T3 colsum_probe registers / local bytes / shared bytes / "
+        f"blocks a SM: " + "; ".join(
+            f"{tag}: {figures(t3.kernel_info(P, variant, stride))}"
+            for tag, variant, P, stride, _ in t3.LADDER))
     # the host library (Matrix Market parser, window router) that the
     # packer loads from native/.  Built here with g++ named explicitly:
     # an exported CXX without OpenMP support fails the Makefile's build,
@@ -1613,14 +1662,15 @@ def main():
                 gbs = nbytes[base] / (got[0] * 1e6)
                 b_ms, b_by = bound(*work[base], d)
                 log(f"[time] {k} alone at {name} shapes (graph replay): "
-                    f"kernel {got[0] * 1e3:.1f} us, plain {got[1] * 1e3:.1f} "
+                    f"kernel {got[0] * 1e3:.2f} us, plain {got[1] * 1e3:.1f} "
                     f"us; eager: kernel {time_ms(kern, 20) * 1e3:.1f} us; "
                     f"kernel moves {nbytes[base] / 1e6:.2f} MB (computed) = "
                     f"{gbs:.0f} GB/s, {gbs / copy_gbs:.1%} of the copy rate, "
                     f"bound {nbytes[base] / copy_gbs / 1e3:.1f} us at the "
                     f"copy rate; with x read once "
-                    f"{work[base][0] / 1e6:.2f} MB, bound {b_ms * 1e3:.1f} us "
-                    f"({b_by}) at {PEAK_BYTES / 1e12} TB/s [{card}]")
+                    f"{work[base][0] / 1e6:.2f} MB, bound {b_ms * 1e3:.2f} us "
+                    f"({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
+                    f"{b_ms / got[0]:.3f} of it [{card}]")
                 if name == "cop20k_like":
                     # K5's library column: the pass's yardstick (one
                     # cuSPARSE call for its KV_SPMM columns), not K5's alone
@@ -1676,12 +1726,14 @@ def main():
 
     # -- 6. T1-T3: the colsum's costs, on their own launch counts ------------
     t = time.perf_counter()
-    for k, e in compare_probes(dev).items():
+    errs, edges = compare_probes(dev)
+    for k, e in errs.items():
         note({k: e})
-    log(f"[probe] T1 (3 bodies), T2 (3 variants at P = {list(t2.PS)}) and "
-        f"T3 (ladder A-F) == their plain versions bit for bit at the tools' "
-        f"sizes; T2 flane, T2 P=1, T3 B and C == K1 on the card bit for "
-        f"bit; {time.perf_counter() - t:.2f} s")
+    log(f"[probe] T1 (3 bodies at rows {edges['gather_bench']}), T2 (3 "
+        f"variants at (P, NV) {edges['roundcost_ab']}) and T3 (ladder A-F "
+        f"at NV {edges['stream_bench2']}) == their plain versions bit for "
+        f"bit; T2 flane, T2 P=1, T3 B and C == K1 on the card bit for bit; "
+        f"{time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     wrappers = {"gather_bench": t1.gather_probe,
                 "roundcost_ab": t2.roundcost_probe,
@@ -1715,7 +1767,8 @@ def main():
                 f"tool's bytes {r['bytes'] / 1e6:.2f} MB = {gbs:.0f} GB/s, "
                 f"{gbs / copy_gbs:.1%} of the copy rate; must move "
                 f"{r['move_bytes'] / 1e6:.2f} MB, bound {b_ms * 1e3:.2f} us "
-                f"({b_by}) at {PEAK_BYTES / 1e12} TB/s [{card}]")
+                f"({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
+                f"{b_ms / r['ms']:.3f} of it [{card}]")
     # the kernels line's rows: one named variant each, at the tool's size
     reps = {"gather_bench": "sublane", "roundcost_ab": "cur P=32",
             "stream_bench2": "D P4"}

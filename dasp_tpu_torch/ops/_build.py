@@ -83,6 +83,11 @@ SIGNATURES = {
     "dasp_roundcost_probe": _ROUNDCOST,
     # T3: wins, vals, idx, x2d, out, nv, P, variant, stride, stream
     "dasp_stream_probe": _STREAM,
+    # what the build gave T1 (body; int[5] out), T2 (P, variant) and T3
+    # (P, variant, stride; int[4] out)
+    "dasp_gather_probe_info": (_I, _P),
+    "dasp_roundcost_probe_info": (_I, _I, _P),
+    "dasp_stream_probe_info": (_I, _I, _I, _P),
 }
 
 

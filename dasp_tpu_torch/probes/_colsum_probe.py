@@ -1,16 +1,20 @@
 """The colsum probe body that T2 (``roundcost_ab``) and T3
 (``stream_bench2``) share: its forms, its plain PyTorch version, the check
-of its arguments and its launch.  The kernel is ``csrc/colsum_probe.cu``,
-whose header note gives each form's gather.
+of its arguments, its launch and what the build gave it.  The kernel is
+``csrc/colsum_probe.cu``, whose header note gives each form's gather.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..wplan import SUB, LANES
 from ..ops import _build
 from ._common import check_args
+
+INFO = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
 
 
 def colsum_probe_plain(wins: torch.Tensor, vals: torch.Tensor,
@@ -91,16 +95,35 @@ def check_probe_args(fn: str, wins, vals, idx, x2d,
     return dev
 
 
-def launch(entry: str, wins, vals, idx, x2d, stride: int,
-           *ints: int) -> torch.Tensor:
+def launch(entry: str, wins, vals, idx, x2d, stride: int, *ints: int,
+           lib=None) -> torch.Tensor:
     """Run C entry point ``entry`` (wins, vals, idx, x2d, out, nv, P,
-    *ints, stream) on CUDA tensors checked by ``check_probe_args``."""
+    *ints, stream) of ``lib`` (the kernel library by default) on CUDA
+    tensors checked by ``check_probe_args``."""
     nv, P = wins.shape[0], wins.shape[1] - 1
+    for name, t in (("vals", vals), ("idx", idx), ("x2d", x2d)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{entry}: {name} must be 16-byte aligned (the "
+                             "kernel copies 16 bytes a thread)")
     out = torch.empty((nv * (SUB // stride), LANES), dtype=torch.float32,
                       device=x2d.device)
-    rc = getattr(_build.library(), entry)(
+    rc = getattr(lib or _build.library(), entry)(
         wins.data_ptr(), vals.data_ptr(), idx.data_ptr(), x2d.data_ptr(),
         out.data_ptr(), nv, P, *ints,
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(rc, entry)
     return out
+
+
+def kernel_info(entry: str, *ints: int) -> dict:
+    """What the build gave the instance that C entry point ``entry``
+    (``dasp_roundcost_probe_info`` with P, variant;
+    ``dasp_stream_probe_info`` with P, variant, stride) would launch:
+    registers and local (stack and spill) bytes a thread, shared bytes a
+    block and co-resident blocks a SM.  Builds the library: needs the
+    card."""
+    out = (ctypes.c_int * len(INFO))()
+    _build.check(getattr(_build.library(), entry)(*ints,
+                                                 ctypes.addressof(out)),
+                 entry)
+    return dict(zip(INFO, out))

@@ -6,12 +6,15 @@ Replaces ``tools/gather_bench.py`` (its kernel ``pallas_stream_op``,
 :46-65, and ``main``, :68-96), which timed the TPU's in-kernel gathers.
 Over a stream of R rows of 128 int32 idx and a (2048, 128) f32 table xw:
   copy      out[r, j] = float(idx[r, j] * 2)          (reads no table)
-  lane      out[r, j] = xw[r mod 2048, idx[r, j]]     (shared-memory gather)
-  sublane   out[r, j] = xw[idx[r, j], j]              (L2 gather)
+  lane      out[r, j] = xw[r mod 2048, idx[r, j]]     (from the stream's
+                                                       table rows)
+  sublane   out[r, j] = xw[idx[r, j], j]              (from a 16-column
+                                                       slab of the table)
   xla_take  torch.take of the flat table, the library yardstick (:92-96)
 Stream row r meets table row r mod 2048 in the lane gather because the
-tool's table block index is constant (:58).  The kernel is
-``csrc/gather_probe.cu``; idx must lie in the table (not checked).
+tool's table block index is constant (:58).  The kernels are
+``csrc/gather_probe.cu``, which gathers both bodies from shared memory;
+idx must lie in the table (not checked).
 
 ``gather_probe`` takes a CPU tensor to ``gather_probe_plain`` and a CUDA
 tensor to the kernel; ``gather_probe.launches["f32"]`` counts the
@@ -22,6 +25,7 @@ alone and as the tool's chained step (the body, then
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -66,6 +70,9 @@ def gather_probe(idx: torch.Tensor, xw: torch.Tensor,
                          f"multiple of the {B}-row block")
     if dev.type == "cpu":
         return gather_probe_plain(idx, xw, body)
+    if idx.data_ptr() % 16 or xw.data_ptr() % 16:
+        raise ValueError("gather_probe: idx and xw must be 16-byte aligned "
+                         "(the kernels move 16 bytes a thread)")
     out = torch.empty((rows, LANES), dtype=torch.float32, device=dev)
     rc = _build.library().dasp_gather_probe(
         idx.data_ptr(), xw.data_ptr(), out.data_ptr(), rows,
@@ -76,6 +83,18 @@ def gather_probe(idx: torch.Tensor, xw: torch.Tensor,
 
 
 gather_probe.launches = {"f32": 0}
+
+
+def kernel_info(body: str) -> dict:
+    """What the build gave ``body``'s kernel: registers and local (stack
+    and spill) bytes a thread, shared bytes a block, co-resident blocks a
+    SM, and the table columns a sublane block holds (0 for the streams).
+    Builds the library: needs the card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().dasp_gather_probe_info(
+        BODIES.index(body), ctypes.addressof(out)), "dasp_gather_probe_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "slab_columns"), out))
 
 
 def xla_take(idx: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,9 @@ import torch
 
 from ..ops.cuda_backend import TAP
 from ..wplan import SUB, LANES
-from ._colsum_probe import (check_probe_args, colsum_probe_plain, launch,
-                            must_move, stream_bytes)
+from ._colsum_probe import (check_probe_args, colsum_probe_plain,
+                            kernel_info as _kernel_info, launch, must_move,
+                            stream_bytes)
 from ._common import graph_ms, require_cuda
 
 NV = 4096                          # the tool's default stream (:34)
@@ -76,6 +77,14 @@ def roundcost_probe(wins: torch.Tensor, vals: torch.Tensor,
 
 
 roundcost_probe.launches = {"f32": 0}
+
+
+def kernel_info(P: int, variant: str) -> dict:
+    """What the build gave the instance that ``roundcost_probe`` launches at
+    these arguments (``_colsum_probe.kernel_info``).  Needs the card."""
+    _form(variant, P)
+    return _kernel_info("dasp_roundcost_probe_info", P,
+                        VARIANTS.index(variant))
 
 
 def make_inputs(P: int, nv: int = NV, device="cpu", seed: int = 0):

@@ -33,8 +33,9 @@ import torch
 
 from ..ops.cuda_backend import TAP
 from ..wplan import SUB, LANES
-from ._colsum_probe import (check_probe_args, colsum_probe_plain, launch,
-                            must_move, stream_bytes)
+from ._colsum_probe import (check_probe_args, colsum_probe_plain,
+                            kernel_info as _kernel_info, launch, must_move,
+                            stream_bytes)
 from ._common import graph_ms, require_cuda
 
 NV = 4096                          # vregs (:29)
@@ -83,6 +84,14 @@ def stream_probe(wins: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
 
 
 stream_probe.launches = {"f32": 0}
+
+
+def kernel_info(P: int, variant: str, stride: int = SUB) -> dict:
+    """What the build gave the instance that ``stream_probe`` launches at
+    these arguments (``_colsum_probe.kernel_info``).  Needs the card."""
+    _form(variant, P)
+    return _kernel_info("dasp_stream_probe_info", P,
+                        MAKE_VARIANTS.index(variant), stride)
 
 
 def make_inputs(nv: int = NV, device="cpu", seed: int = 0):

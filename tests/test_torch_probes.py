@@ -17,6 +17,8 @@ for bit where they compute K1's function.
 
 import ast
 import importlib.util
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
+from dasp_tpu_torch.ops import _build
 from dasp_tpu_torch.ops.colsum import colsum_plain
+from dasp_tpu_torch.probes import probe_levers as levers
 from dasp_tpu_torch.probes import gather_bench as t1
 from dasp_tpu_torch.probes import resident_probe as t4
 from dasp_tpu_torch.probes import roundcost_ab as t2
@@ -86,6 +91,26 @@ def test_gather_plain_matches_tool(body):
     assert _scaled_err(got.numpy(), ref) <= TOL
 
 
+@pytest.mark.parametrize("body", t1.BODIES)
+def test_gather_plain_matches_tool_at_three_blocks(body):
+    """T1's plain version against the tool's pallas_stream_op at R = 3 x
+    2048, three grid steps of the tool, where the kernel's sublane blocks
+    take unequal shares of the stream's chunks."""
+    main = _function(_tree(tool_t1.__file__), "main")
+    calls = sorted((n for n in ast.walk(main) if isinstance(n, ast.Call)
+                    and getattr(n.func, "id", "") == "pallas_stream_op"),
+                   key=lambda n: n.lineno)
+    fn = eval(ast.unparse(calls[t1.BODIES.index(body)].args[0]),
+              {"jnp": jnp})
+    inp = t1.make_inputs(rows=3 * t1.B, seed=3)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(tool_t1.pallas_stream_op(fn)(
+            inp[body].numpy(), inp["xw"].numpy()))
+    got = t1.gather_probe(inp[body], inp["xw"], body)
+    assert got.shape == ref.shape == (3 * t1.B, 128)
+    assert _scaled_err(got.numpy(), ref) <= TOL
+
+
 def test_gather_make_inputs_are_the_tools(monkeypatch):
     """make_inputs draws what the tool's main("all") feeds its kernels
     (its timing replaced by a recorder), and xla_take is its flat take."""
@@ -106,9 +131,9 @@ def test_gather_make_inputs_are_the_tools(monkeypatch):
                            mode="clip"))))
 
 
-def _tool_t3_make():
+def _tool_t3_make(nv=NV):
     return _exec([_function(_tree(T3_SRC), "make")], T3_SRC, LANES=128,
-                 SUB=8, NV=NV, BV=128, UNROLL=8, S=t3.S)["make"]
+                 SUB=8, NV=nv, BV=128, UNROLL=8, S=t3.S)["make"]
 
 
 @pytest.mark.parametrize("step", [tag for tag, *_ in t3.LADDER])
@@ -123,6 +148,22 @@ def test_stream_plain_matches_tool(step):
             wins.numpy(), vals.numpy(), idx.numpy(), x2d.numpy()))
     got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
     assert got.shape == ref.shape == (NV * 8 // stride, 128)
+    assert _scaled_err(got.numpy(), ref) <= TOL
+
+
+@pytest.mark.parametrize("step", [tag for tag, *_ in t3.LADDER])
+def test_stream_plain_matches_tool_at_three_grid_steps(step):
+    """T3's plain version against the tool's make in interpret mode at
+    NV = 3 x 128 (three grid steps of the tool), a stream that is no
+    multiple of the kernel's persistent grid."""
+    _, variant, P, stride, _ = next(s for s in t3.LADDER if s[0] == step)
+    vals, x2d, steps = t3.make_inputs(3 * NV, seed=3)
+    wins, idx = steps[step[0]]
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(_tool_t3_make(3 * NV)(variant, P, stride)(
+            wins.numpy(), vals.numpy(), idx.numpy(), x2d.numpy()))
+    got = t3.stream_probe(wins, vals, idx, x2d, variant, stride)
+    assert got.shape == ref.shape == (3 * NV * 8 // stride, 128)
     assert _scaled_err(got.numpy(), ref) <= TOL
 
 
@@ -236,3 +277,52 @@ def test_probe_entry_points_need_a_card(monkeypatch):
                  lambda: t3.main(["8"]), t4.main):
         with pytest.raises(SystemExit, match="needs a CUDA card"):
             main()
+
+
+def test_probe_levers_name_switches_of_the_sources():
+    """Every flag probe_levers builds is a switch of the source it builds,
+    and the sources' defaults are the shipped design: no window staging,
+    the values staged, a slab of 16 table columns."""
+    for source, variants in (("colsum_probe.cu", levers.COLSUM_VARIANTS),
+                             ("gather_probe.cu", levers.GATHER_VARIANTS)):
+        with open(os.path.join(_build.SRC_DIR, source)) as fh:
+            text = fh.read()
+        assert variants["shipped"] == ()
+        for flags in variants.values():
+            for flag in flags:
+                name = re.fullmatch(r"-D(\w+)=\d+", flag).group(1)
+                assert f"#ifndef {name}\n#define {name} " in text, flag
+    defaults = {}
+    for source in ("colsum_probe.cu", "gather_probe.cu"):
+        with open(os.path.join(_build.SRC_DIR, source)) as fh:
+            defaults.update(re.findall(r"#define (PROBE_\w+|GATHER_\w+) "
+                                       r"(-?\d+)", fh.read()))
+    assert defaults == {"PROBE_STAGE_P": "0", "PROBE_STAGE_VALS": "1",
+                        "GATHER_SLAB": "16"}
+
+
+def test_smoke_holds_the_probes_at_their_edge_sizes():
+    """chip_smoke.probe_edges, the sizes the card holds T1-T3 to their
+    plain versions at: the tools' sizes and 8x, one and three 2,048-row
+    blocks of T1, T2 at P = 2 and 5, T3 at 3 x 128 vregs; and the plain
+    versions at those P agree with themselves through the wrappers on the
+    CPU."""
+    edges = chip_smoke.probe_edges(t1, t2, t3)
+    assert edges["gather_bench"] == [t1.ROWS, 8 * t1.ROWS, t1.B, 3 * t1.B]
+    assert {P for P, nv in edges["roundcost_ab"] if nv == t2.NV} == \
+        set(t2.PS) | {2, 5}
+    assert {P for P, nv in edges["roundcost_ab"] if nv == 8 * t2.NV} == \
+        set(t2.PS)
+    assert edges["stream_bench2"] == [t3.NV, 8 * t3.NV, 3 * NV]
+    for P in (2, 5):
+        args = t2.make_inputs(P, 16, seed=P)
+        for variant in t2.VARIANTS:
+            assert torch.equal(t2.roundcost_probe(*args, variant),
+                               t2.roundcost_probe_plain(*args, variant))
+
+
+def test_probe_levers_needs_a_card(monkeypatch):
+    """probe_levers measures the card and refuses to run without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        levers.main()

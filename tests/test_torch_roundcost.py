@@ -69,6 +69,25 @@ def test_roundcost_plain_matches_tool(variant, P):
     assert float(err.max()) <= TOL
 
 
+@pytest.mark.parametrize("P", (2, 5))
+@pytest.mark.parametrize("variant", t2.VARIANTS)
+def test_roundcost_plain_matches_tool_at_edge_rounds(variant, P):
+    """T2's plain version against the tool's kernel in interpret mode at
+    P = 2, the fewest rounds with a tag, and P = 5, whose 6-word wins rows
+    the kernel stages a word a thread from addresses that are not 16-byte
+    aligned, on the tool's inputs at NV = 128."""
+    wins, vals, idx, x2d = t2.make_inputs(P, NV)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(_tool_function("make_colsum")(
+            P, t2.S, NV, variant)(wins.numpy(), vals.numpy(), idx.numpy(),
+                                  x2d.numpy()))
+    got = t2.roundcost_probe(wins, vals, idx, x2d, variant)
+    assert got.shape == ref.shape == (NV, 128)
+    err = np.abs(got.numpy().astype(np.float64) - ref) / np.maximum(
+        np.abs(ref), 1.0)
+    assert float(err.max()) <= TOL
+
+
 @pytest.mark.parametrize("P", (1, 4, 32))
 def test_roundcost_make_inputs_are_the_tools(P):
     """make_inputs draws what the tool's bench_one (:126-134) draws."""
