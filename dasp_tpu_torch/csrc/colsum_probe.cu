@@ -38,40 +38,29 @@
 //
 // Shape on Hopper: K6's phase A (csrc/resident.cu), the colsum users run.
 // A block of 128 threads (thread j owns lane column j) walks every
-// gridDim.x-th vreg of a persistent grid (the co-resident blocks, at most
-// NV; 10-12 a SM, 43 registers, 12.6 KB of shared memory a block).  While
-// it computes vreg v, the operands of v + gridDim.x are on their way into
-// the other of two shared-memory stages by cp.async: its idx tile, its
-// values and its wins row, so the cell lookup, the tag and the window word
-// come from shared memory; a thread's 8 gathers are issued before its
-// first product.  The form, the stride and WIN are template parameters, P
-// a runtime argument.  Every window a vreg names must lie whole in x.
+// gridDim.x-th vreg of a persistent grid (the co-resident blocks of the
+// instance, at most NV).  While it computes vreg v, the operands of
+// v + gridDim.x are on their way into the other of two shared-memory
+// stages by cp.async: its idx tile, its values and its wins row, so the
+// cell lookup, the tag and the window word come from shared memory; a
+// thread's 8 gathers are issued before its first product.  A stage is
+// 6,288 B, two are 12.6 KB of static shared memory a block.  The form and
+// the stride are template parameters, P a runtime argument.  Every window
+// a vreg names must lie whole in x.
 //
-// What holds it back (PERF.md §6, the T1-T3 redesign; NVIDIA H100 80GB
-// HBM3, 700 W):
-// the x gathers' L2 sectors.  A warp's 32 gathers touch ~20-32 sectors,
-// and a vreg's 1,024 touch an estimated ~128 (P = 1) to ~900 (P = 32)
-// distinct ones, all served by L2.  In the T3 ladder, D (4
-// random windows) and E (the same 4 tags, every window 0, which stays in
-// L1) differ in nothing else: 18.2 against 9.9 us at NV = 4,096.  T2
-// cur's time grows with P as those distinct sectors do (10.7 us at P = 1
-// to 33.2 at P = 32), and flane and fboth, whose tags repeat across a
-// sublane's equal lam, touch fewer and run 24.6 and 21.7 at P = 32.
-// Levers that probes/probe_levers.py measured (each a switch below, whose
-// defaults ship), at the tools' sizes:
-//   - WIN, the vreg's windows staged in shared memory too (8 rows x
-//     512 B, 4 KB each, fetched whole; -DPROBE_STAGE_P=n stages them at
-//     P <= n): slower at every P it touches (T2 cur P = 2 14.9 against
-//     12.6 us, P = 4 21.4 against 18.6, T3 D 22.1 against 18.2), and
-//     1.7-6.4x slower where every vreg fetches the same window (T3 A, E;
-//     likely every SM copying the same 4 KB from one L2 slice): the copies
-//     move whole windows where the gathers fetch the sectors they need and
-//     the stages cut the blocks a SM to 5-7.  So no threshold is kept.
-//   - the values loaded with ld.global.cs rather than staged
-//     (-DPROBE_STAGE_VALS=0): within 1-4 % at the tools' sizes, either way
-//     (T3 D 18.5 against 18.2, T2 cur P = 32 33.7 against 33.2), 3-7 %
-//     faster at 8x (T3 D 129.7 against 139.7): staged, as phase A stages
-//     them.
+// What holds it back (PERF.md §6, PR 11's table: chip_smoke.py's [probe]
+// sweeps, one launch a graph replay; NVIDIA H100 80GB HBM3, 700 W): the x
+// gathers' L2 sectors.  A warp's 32 gathers touch ~20-32 sectors, and a
+// vreg's 1,024 touch an estimated ~128 (P = 1) to ~900 (P = 32) distinct
+// ones, all served by L2.  In the T3 ladder, D (4 random windows) and E
+// (the same 4 tags, every window 0, which stays in L1) differ in nothing
+// else, and E runs in about 0.6 of D's time; T2 cur's time grows with P
+// as those distinct sectors do, about threefold from P = 1 to P = 32.
+// Staging the vreg's windows in shared memory too (8 rows x 512 B, 4 KB
+// each, fetched whole) was slower at every P it was tried (P <= 2 and
+// P <= 4), and loading the values with ld.global.cs rather than staging
+// them was within a few per cent at the tools' sizes: PERF.md §6 gives
+// the readings and the commit whose probes/probe_levers.py took them.
 //
 // NV need not be a multiple of the grid (each block takes what is left).
 
@@ -81,126 +70,73 @@
 #include "colsum_common.cuh"
 #include "cp_async.cuh"
 
-// design levers, each a compile-time switch that probes/probe_levers.py
-// turns; the defaults are the shipped design (see the note above)
-#ifndef PROBE_STAGE_P
-#define PROBE_STAGE_P 0       // stage the windows at P <= this (0: never;
-#endif                        // the WIN instances are then not built)
-#ifndef PROBE_STAGE_VALS
-#define PROBE_STAGE_VALS 1    // stage the values (0: ld.global.cs)
-#endif
-
 namespace {
 
 constexpr int MAX_P = 32;       // tags an int16 idx can carry (0..31): the
                                 // words of a wins row that are read
-constexpr int STAGE_P = PROBE_STAGE_P;
-constexpr int MAXW = STAGE_P > 0 ? STAGE_P : 1;   // window registers
 constexpr int MIN_BLOCKS = 8;   // blocks a SM the compiler must allow (at
                                 // most 64 registers a thread)
-constexpr int MAX_DEV = 16;     // devices whose attributes are set
+constexpr int MAX_DEV = 16;     // devices whose occupancies are cached
 
-// one stage in dynamic shared memory: idx tile, values, wins row (MAX_P + 1
-// words, padded to 16 B), then the staged windows
-constexpr int TILE_B = SUB * LANES * 2;
-constexpr int VALS_B = PROBE_STAGE_VALS ? SUB * LANES * 4 : 0;
-constexpr int WINS_B = (MAX_P + 1 + 3) / 4 * 16;
-constexpr int WIN_B = SUB * LANES * 4;
-__host__ __device__ constexpr int stage_bytes(int nwin) {
-  return TILE_B + VALS_B + WINS_B + nwin * WIN_B;
-}
+// one stage: idx tile, values, wins row (MAX_P + 1 words, padded to 16 B)
+struct __align__(16) Stage {
+  int16_t tile[SUB][LANES];
+  float vals[SUB][LANES];
+  int32_t wins[(MAX_P + 1 + 3) / 4 * 4];
+};
 
 enum Form { STATIC = 0, ONE = 1, CUR = 2, FLANE = 3, FBOTH = 4 };
 
-// windows a vreg gathers from
-__host__ __device__ constexpr int n_windows(int form, int P) {
-  return form == STATIC || form == ONE ? 1 : P;
-}
-
-template <int FORM, int STRIDE, bool WIN>
+template <int FORM, int STRIDE>
 __global__ void __launch_bounds__(LANES, MIN_BLOCKS)
 probe_kernel(const int32_t* __restrict__ wins, const float* __restrict__ vals,
              const int16_t* __restrict__ idx, const float* __restrict__ x2d,
              float* __restrict__ out, int nv, int P) {
   constexpr int R = SUB / STRIDE;
-  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Stage stages[2];
   const int j = threadIdx.x;
-  const int nwin = WIN ? n_windows(FORM, P) : 0;
-  const int sb = stage_bytes(nwin);
   const int64_t G = gridDim.x;
-  // the window offsets of a vreg to be staged (WIN), loaded one vreg ahead
-  int wr[MAXW];
-  auto load_w = [&](int64_t v) {
-#pragma unroll
-    for (int p = 0; p < MAXW; ++p)
-      if (WIN && p < nwin)
-        wr[p] = FORM == STATIC ? 0 : __ldg(wins + v * (P + 1) + 1 + p);
-  };
   // start the copies of vreg v into stage s; every thread commits one
   // group, so that the pending counts of all threads stay in step
-  auto stage = [&](unsigned char* s, int64_t v, bool windows) {
-    cp_async16(s + 16 * j, idx + v * SUB * LANES + 8 * j);
+  auto stage = [&](Stage& s, int64_t v) {
+    cp_async16(&s.tile[0][0] + 8 * j, idx + v * SUB * LANES + 8 * j);
 #pragma unroll
-    for (int k = 0; k < VALS_B / 16 / LANES; ++k)
-      cp_async16(s + TILE_B + 16 * (j + LANES * k),
+    for (int k = 0; k < SUB * LANES / 4 / LANES; ++k)
+      cp_async16(&s.vals[0][0] + 4 * (j + LANES * k),
                  vals + v * SUB * LANES + 4 * (j + LANES * k));
-    if (!WIN && FORM != STATIC && j <= min(P, MAX_P))
-      cp_async4(s + TILE_B + VALS_B + 4 * j, wins + v * (P + 1) + j);
-    if (WIN && windows) {
-#pragma unroll
-      for (int p = 0; p < MAXW; ++p) {
-        if (p < nwin) {
-          const float* src = x2d + (int64_t)wr[p] * LANES;
-          unsigned char* dst = s + stage_bytes(p);
-#pragma unroll
-          for (int k = 0; k < 2; ++k)
-            cp_async16(dst + 16 * (j + LANES * k), src + 4 * (j + LANES * k));
-        }
-      }
-    }
+    if (FORM != STATIC && j <= min(P, MAX_P))
+      cp_async4(s.wins + j, wins + v * (P + 1) + j);
     cp_async_commit();
   };
 
   int64_t v = blockIdx.x;
-  load_w(v);
-  stage(smem, v, true);
-  if (v + G < nv) load_w(v + G);
-  for (int b = 0, it = 0; v < nv; v += G, b ^= 1, ++it) {
+  stage(stages[0], v);
+  for (int b = 0; v < nv; v += G, b ^= 1) {
     if (v + G < nv) {
-      // STATIC's window never changes: each stage copies it once
-      stage(smem + (b ^ 1) * sb, v + G, FORM != STATIC || it == 0);
-      if (v + 2 * G < nv) load_w(v + 2 * G);
+      stage(stages[b ^ 1], v + G);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned char* st = smem + b * sb;
-    const int16_t(*tile)[LANES] =
-        reinterpret_cast<const int16_t(*)[LANES]>(st);
-    const float(*va)[LANES] =
-        reinterpret_cast<const float(*)[LANES]>(st + TILE_B);
-    const int32_t* w =
-        reinterpret_cast<const int32_t*>(st + TILE_B + VALS_B) + 1;
-    const float* win = reinterpret_cast<const float*>(st + stage_bytes(0));
+    const Stage& st = stages[b];
+    const int32_t* w = st.wins + 1;
     float g[SUB], a[SUB];
 #pragma unroll
     for (int i = 0; i < SUB; ++i) {
-      a[i] = VALS_B ? va[i][j] : __ldcs(vals + (v * SUB + i) * LANES + j);
-      const int slot = (int)tile[i][j];         // upcast before shifting
+      a[i] = st.vals[i][j];
+      const int slot = (int)st.tile[i][j];      // upcast before shifting
       const int lam = slot & 127;
-      const int cell = (int)tile[i][lam];
+      const int cell = (int)st.tile[i][lam];
       const int q = (cell >> 7) & 7;
       if (FORM == STATIC || FORM == ONE) {
-        g[i] = WIN ? win[q * LANES + lam]
-                   : x2d[(int64_t)((FORM == ONE ? w[0] : 0) + q) * LANES + lam];
+        g[i] = x2d[(int64_t)((FORM == ONE ? w[0] : 0) + q) * LANES + lam];
       } else {
         const int c = FORM == CUR ? slot >> 10
                     : FORM == FLANE ? cell >> 10
-                    : (int)tile[q][lam] >> 10;
-        g[i] = (unsigned)c >= (unsigned)P ? 0.0f
-             : WIN ? win[(c * SUB + q) * LANES + lam]
-                   : x2d[(int64_t)(w[c] + q) * LANES + lam];
+                    : (int)st.tile[q][lam] >> 10;
+        g[i] = (unsigned)c >= (unsigned)P
+                   ? 0.0f : x2d[(int64_t)(w[c] + q) * LANES + lam];
       }
     }
     float acc[R];
@@ -216,61 +152,44 @@ probe_kernel(const int32_t* __restrict__ wins, const float* __restrict__ vals,
   }
 }
 
-template <int FORM, int STRIDE>
-const void* kernel_of(bool win) {
-  if constexpr (STAGE_P > 0) {
-    if (win) return (const void*)probe_kernel<FORM, STRIDE, true>;
-  }
-  return (const void*)probe_kernel<FORM, STRIDE, false>;
+constexpr int stride_index(int stride) {
+  return stride == 2 ? 0 : stride == 4 ? 1 : 2;
 }
 
 template <int FORM>
-const void* kernel_stride(int stride, bool win) {
+const void* kernel_stride(int stride) {
   switch (stride) {
-    case 2: return kernel_of<FORM, 2>(win);
-    case 4: return kernel_of<FORM, 4>(win);
-    case 8: return kernel_of<FORM, 8>(win);
+    case 2: return (const void*)probe_kernel<FORM, 2>;
+    case 4: return (const void*)probe_kernel<FORM, 4>;
+    case 8: return (const void*)probe_kernel<FORM, 8>;
   }
   return nullptr;
 }
 
-const void* kernel_form(int form, int stride, bool win) {
+const void* kernel_form(int form, int stride) {
   switch (form) {
-    case STATIC: return kernel_stride<STATIC>(stride, win);
-    case ONE: return kernel_stride<ONE>(stride, win);
-    case CUR: return kernel_stride<CUR>(stride, win);
-    case FLANE: return kernel_stride<FLANE>(stride, win);
-    case FBOTH: return kernel_stride<FBOTH>(stride, win);
+    case STATIC: return kernel_stride<STATIC>(stride);
+    case ONE: return kernel_stride<ONE>(stride);
+    case CUR: return kernel_stride<CUR>(stride);
+    case FLANE: return kernel_stride<FLANE>(stride);
+    case FBOTH: return kernel_stride<FBOTH>(stride);
   }
   return nullptr;
 }
 
-// The instance of (form, stride, P), its dynamic shared bytes and its
-// co-resident blocks a SM (the shared-memory limit raised on first use).
-int plan(int form, int stride, int P, const void** f, int* dyn, int* per_sm,
-         int* sms) {
-  if (P < 1) return (int)cudaErrorInvalidValue;
-  const bool win = n_windows(form, P) <= STAGE_P;
-  *f = kernel_form(form, stride, win);
+// The instance of (form, stride), its co-resident blocks a SM (found once
+// per device and instance) and the SMs.
+int plan(int form, int stride, const void** f, int* per_sm, int* sms) {
+  *f = kernel_form(form, stride);
   if (!*f) return (int)cudaErrorInvalidValue;
-  *dyn = 2 * stage_bytes(win ? n_windows(form, P) : 0);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
-  // [device][form][stride][win]: limit raised; then blocks a SM by P
-  static bool raised[MAX_DEV][5][3][2];
-  static int cache[MAX_DEV][5][3][MAX_P + 1];
-  const int si = stride / 4 + (stride == 8);
-  if (!raised[dev][form][si][win]) {
-    e = cudaFuncSetAttribute(*f, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             2 * stage_bytes(win ? MAXW : 0));
-    if (e != cudaSuccess) return (int)e;
-    raised[dev][form][si][win] = true;
-  }
-  int& c = cache[dev][form][si][P < MAX_P ? P : MAX_P];
+  static int cache[MAX_DEV][5][3];
+  int& c = cache[dev][form][stride_index(stride)];
   if (c == 0) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c, *f, LANES, *dyn);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c, *f, LANES, 0);
     if (e != cudaSuccess) {
       c = 0;
       return (int)e;
@@ -284,15 +203,15 @@ int plan(int form, int stride, int P, const void** f, int* dyn, int* per_sm,
 int launch_form(int form, const void* wins, const void* vals, const void* idx,
                 const void* x2d, void* out, int nv, int P, int stride,
                 void* stream) {
-  if (nv <= 0) return (int)cudaErrorInvalidValue;
+  if (nv <= 0 || P < 1) return (int)cudaErrorInvalidValue;
   const void* f = nullptr;
-  int dyn = 0, per_sm = 0, sms = 0;
-  int rc = plan(form, stride, P, &f, &dyn, &per_sm, &sms);
+  int per_sm = 0, sms = 0;
+  int rc = plan(form, stride, &f, &per_sm, &sms);
   if (rc) return rc;
   const int cap = per_sm * sms;
   void* args[] = {&wins, &vals, &idx, &x2d, &out, &nv, &P};
   cudaError_t e = cudaLaunchKernel(f, dim3(nv < cap ? nv : cap), dim3(LANES),
-                                   args, dyn,
+                                   args, 0,
                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -305,19 +224,18 @@ int stream_form(int P, int variant) {
 }
 
 // registers a thread, local (stack and spill) bytes a thread, shared bytes
-// a block (static and dynamic) and co-resident blocks a SM of the instance
-// that runs (form, stride, P)
-int info(int form, int stride, int P, int* out) {
+// a block and co-resident blocks a SM of the instance of (form, stride)
+int info(int form, int stride, int* out) {
   const void* f = nullptr;
-  int dyn = 0, per_sm = 0, sms = 0;
-  int rc = plan(form, stride, P, &f, &dyn, &per_sm, &sms);
+  int per_sm = 0, sms = 0;
+  int rc = plan(form, stride, &f, &per_sm, &sms);
   if (rc) return rc;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, f);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes + dyn;
+  out[2] = (int)a.sharedSizeBytes;
   out[3] = per_sm;
   return 0;
 }
@@ -349,12 +267,12 @@ extern "C" int dasp_stream_probe(const void* wins, const void* vals,
 // The [build] figures (info above) of T2's (P, variant) and of T3's
 // (P, variant, stride), as the two entry points above would launch them.
 extern "C" int dasp_roundcost_probe_info(int P, int variant, int* out) {
-  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
-  return info(roundcost_form(P, variant), SUB, P, out);
+  if (variant < 0 || variant > 2 || P < 1) return (int)cudaErrorInvalidValue;
+  return info(roundcost_form(P, variant), SUB, out);
 }
 
 extern "C" int dasp_stream_probe_info(int P, int variant, int stride,
                                       int* out) {
-  if (variant < 0 || variant > 1) return (int)cudaErrorInvalidValue;
-  return info(stream_form(P, variant), stride, P, out);
+  if (variant < 0 || variant > 1 || P < 1) return (int)cudaErrorInvalidValue;
+  return info(stream_form(P, variant), stride, out);
 }

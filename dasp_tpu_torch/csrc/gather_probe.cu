@@ -40,11 +40,12 @@
 //            lane takes RPB = 8 stream rows a block step, loads their table
 //            rows (r mod 2048) with the idx as part of the stream, and
 //            gathers from those rows in shared memory.
-// Measured (PERF.md §6, the T1-T3 redesign; NVIDIA H100 80GB HBM3, 700 W):
-// sublane 8.77 us at R = 20,480 (20 launches a graph) against a bound of
-// 6.6 and torch.gather's 27.2; 74.0 at 8x.  probes/probe_levers.py builds
-// this file with a slab of 8 columns (-DGATHER_SLAB=8; 64 KB, two blocks a
-// SM, 32-byte idx rows): 12.5 and 89.5-93.6 us, so 16 columns ship.
+// Measured (PERF.md §6, PR 11's table: chip_smoke.py's [probe] sweep, one
+// launch a graph replay; NVIDIA H100 80GB HBM3, 700 W): sublane at
+// R = 20,480 in under half the time of torch.gather and past half its
+// bound.  A slab of 8 columns (64 KB, two blocks a SM, 32-byte idx rows)
+// ran slower at both sizes of the tool (PERF.md §6 gives the readings and
+// the commit whose probes/probe_levers.py took them), so 16 columns ship.
 
 #include <algorithm>
 
@@ -53,10 +54,6 @@
 
 #include "cp_async.cuh"
 
-#ifndef GATHER_SLAB
-#define GATHER_SLAB 16
-#endif
-
 namespace {
 
 constexpr int LANES = 128;
@@ -64,7 +61,7 @@ constexpr int TABLE_ROWS = 2048;  // the tool's block B (:46)
 constexpr int MAX_DEV = 16;       // devices whose grid size is cached
 
 // sublane
-constexpr int SLAB = GATHER_SLAB;            // table columns a block holds
+constexpr int SLAB = 16;                     // table columns a block holds
 constexpr int GROUPS = LANES / SLAB;         // slabs of the table
 constexpr int CHUNK = 256;                   // stream rows a stage holds
 constexpr int STAGES = 4;                    // idx chunks in the ring

@@ -95,11 +95,10 @@ def check_probe_args(fn: str, wins, vals, idx, x2d,
     return dev
 
 
-def launch(entry: str, wins, vals, idx, x2d, stride: int, *ints: int,
-           lib=None) -> torch.Tensor:
+def launch(entry: str, wins, vals, idx, x2d, stride: int,
+           *ints: int) -> torch.Tensor:
     """Run C entry point ``entry`` (wins, vals, idx, x2d, out, nv, P,
-    *ints, stream) of ``lib`` (the kernel library by default) on CUDA
-    tensors checked by ``check_probe_args``."""
+    *ints, stream) on CUDA tensors checked by ``check_probe_args``."""
     nv, P = wins.shape[0], wins.shape[1] - 1
     for name, t in (("vals", vals), ("idx", idx), ("x2d", x2d)):
         if t.data_ptr() % 16:
@@ -107,7 +106,7 @@ def launch(entry: str, wins, vals, idx, x2d, stride: int, *ints: int,
                              "kernel copies 16 bytes a thread)")
     out = torch.empty((nv * (SUB // stride), LANES), dtype=torch.float32,
                       device=x2d.device)
-    rc = getattr(lib or _build.library(), entry)(
+    rc = getattr(_build.library(), entry)(
         wins.data_ptr(), vals.data_ptr(), idx.data_ptr(), x2d.data_ptr(),
         out.data_ptr(), nv, P, *ints,
         torch.cuda.current_stream(x2d.device).cuda_stream)

@@ -17,8 +17,6 @@ for bit where they compute K1's function.
 
 import ast
 import importlib.util
-import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -29,9 +27,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import chip_smoke
-from dasp_tpu_torch.ops import _build
 from dasp_tpu_torch.ops.colsum import colsum_plain
-from dasp_tpu_torch.probes import probe_levers as levers
+from dasp_tpu_torch.probes import _colsum_probe
 from dasp_tpu_torch.probes import gather_bench as t1
 from dasp_tpu_torch.probes import resident_probe as t4
 from dasp_tpu_torch.probes import roundcost_ab as t2
@@ -279,34 +276,10 @@ def test_probe_entry_points_need_a_card(monkeypatch):
             main()
 
 
-def test_probe_levers_name_switches_of_the_sources():
-    """Every flag probe_levers builds is a switch of the source it builds,
-    and the sources' defaults are the shipped design: no window staging,
-    the values staged, a slab of 16 table columns."""
-    for source, variants in (("colsum_probe.cu", levers.COLSUM_VARIANTS),
-                             ("gather_probe.cu", levers.GATHER_VARIANTS)):
-        with open(os.path.join(_build.SRC_DIR, source)) as fh:
-            text = fh.read()
-        assert variants["shipped"] == ()
-        for flags in variants.values():
-            for flag in flags:
-                name = re.fullmatch(r"-D(\w+)=\d+", flag).group(1)
-                assert f"#ifndef {name}\n#define {name} " in text, flag
-    defaults = {}
-    for source in ("colsum_probe.cu", "gather_probe.cu"):
-        with open(os.path.join(_build.SRC_DIR, source)) as fh:
-            defaults.update(re.findall(r"#define (PROBE_\w+|GATHER_\w+) "
-                                       r"(-?\d+)", fh.read()))
-    assert defaults == {"PROBE_STAGE_P": "0", "PROBE_STAGE_VALS": "1",
-                        "GATHER_SLAB": "16"}
-
-
 def test_smoke_holds_the_probes_at_their_edge_sizes():
     """chip_smoke.probe_edges, the sizes the card holds T1-T3 to their
     plain versions at: the tools' sizes and 8x, one and three 2,048-row
-    blocks of T1, T2 at P = 2 and 5, T3 at 3 x 128 vregs; and the plain
-    versions at those P agree with themselves through the wrappers on the
-    CPU."""
+    blocks of T1, T2 at P = 2 and 5, T3 at 3 x 128 vregs."""
     edges = chip_smoke.probe_edges(t1, t2, t3)
     assert edges["gather_bench"] == [t1.ROWS, 8 * t1.ROWS, t1.B, 3 * t1.B]
     assert {P for P, nv in edges["roundcost_ab"] if nv == t2.NV} == \
@@ -314,15 +287,21 @@ def test_smoke_holds_the_probes_at_their_edge_sizes():
     assert {P for P, nv in edges["roundcost_ab"] if nv == 8 * t2.NV} == \
         set(t2.PS)
     assert edges["stream_bench2"] == [t3.NV, 8 * t3.NV, 3 * NV]
-    for P in (2, 5):
-        args = t2.make_inputs(P, 16, seed=P)
-        for variant in t2.VARIANTS:
-            assert torch.equal(t2.roundcost_probe(*args, variant),
-                               t2.roundcost_probe_plain(*args, variant))
 
 
-def test_probe_levers_needs_a_card(monkeypatch):
-    """probe_levers measures the card and refuses to run without one."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="needs a CUDA card"):
-        levers.main()
+@pytest.mark.parametrize("form", ("static", "one", "cur"))
+def test_colsum_probe_bytes_count_each_input_once(form):
+    """T2/T3's bound bytes: the tools' stream bytes (6 B a slot and the
+    output), and what a call must move: vals, idx, the wins it reads (none
+    for the static form) and each distinct 8-row window once (window 0
+    alone for the static form), and the output."""
+    nv, stride = 3, 2
+    wins = torch.tensor([[0, 8, 16], [0, 16, 8], [0, 24, 8]],
+                        dtype=torch.int32)
+    vals = torch.zeros((nv * 8, 128), dtype=torch.float32)
+    idx = torch.zeros((nv * 8, 128), dtype=torch.int16)
+    out = nv * (8 // stride) * 128 * 4
+    assert _colsum_probe.stream_bytes(nv, stride) == nv * 1024 * 6 + out
+    windows, wins_b = (1, 0) if form == "static" else (3, 3 * 3 * 4)
+    assert _colsum_probe.must_move(wins, vals, idx, form, stride) == (
+        nv * 1024 * 6 + wins_b + windows * 8 * 128 * 4 + out)
