@@ -5,10 +5,10 @@
 Phases, one or more printed lines each, every one raising on failure:
   1. device: needs torch.cuda; prints the card's name and power limit,
      and the device-memory copy rate (the roofline for the kernels);
-  2. build: compiles the CUDA kernels (colsum K1 and its fp64 instance
-     K3, outgather K2 and its fp64 instance K4, the multi-vector colsum
-     K5, the resident executor K6, the L2 probe T4, and the probes T1
-     (gather_probe.cu), T2 and T3 (colsum_probe.cu)) from
+  2. build: compiles the CUDA kernels (the colsum of colsum_multi.cu: K5,
+     and at kv = 1 K1 and its fp64 instance K3; outgather K2 and its fp64
+     instance K4, the resident executor K6, the L2 probe T4, and the
+     probes T1 (gather_probe.cu), T2 and T3 (colsum_probe.cu)) from
      dasp_tpu_torch/csrc with nvcc into one library in
      dasp_tpu_torch/_build, and the packer's native host library
      (native/, make);
@@ -16,12 +16,13 @@ Phases, one or more printed lines each, every one raising on failure:
      through (mixed_categories(2048), as __graft_entry__.entry() packs it):
      every kernel instance (K1 f32 and bf16, K3, K2, K4, K5 at kv = 1, 2,
      4 and 8 with f32, bf16 and f64 values) against its plain version on
-     the same tensors, each K5 slice against K1 / K3 on its own x, each
-     vector of the batched outgather against outgather_plain on its y2,
-     and K6 in f32, bf16 and f64 at 1 and 3 steps, all bit for bit; the
-     registers, local bytes, shared bytes and blocks a SM of every K5
-     instance, of the T1 bodies and of the T2/T3 instances phase 6
-     launches are printed after the build;
+     the same tensors (K1/K3 bit for bit), each K5 slice against K1 / K3
+     on its own x, each vector of the batched outgather against
+     outgather_plain on its y2, and K6 in f32, bf16 and f64 at 1 and 3
+     steps, all bit for bit; the registers, local bytes, shared bytes and
+     blocks a SM of every K5 instance (the kv = 1 ones again on a [build]
+     K1 line: they are K1/K3), of the T1 bodies and of the T2/T3
+     instances phase 6 launches are printed after the build;
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16 (each call
@@ -61,10 +62,13 @@ Phases, one or more printed lines each, every one raising on failure:
      vector SpMV eager and graphed beside the resident step and cuSPARSE;
      every kernel instance alone (ALONE_REPS launches
      captured in one graph, so that the host's replay cost does not
-     show) beside its plain version, with the bytes it must move and its
-     bound; the outgather of one pass as one launch and as one launch a
-     vector; the K5 split (K5 alone at kv = 1, 2, 4, 8 as it is and with
-     every gather sent to one fixed row of its table, K1/K3 beside them);
+     show) beside its plain version, with the bytes it must move, its
+     bound, its share of the bound and whether its tables fit in the 50
+     MB L2 (where they do, the 20 launches can find them there, and a
+     share above 1 is L2 residence, not a fault); the outgather of one
+     pass as one launch and as one launch a vector; the K5 split (K5
+     alone at kv = 1, 2, 4, 8 as it is and with every gather sent to one
+     fixed row of its table, K1/K3, its kv = 1 instance, beside them);
      a torch.profiler breakdown of the f32 and f64 streamed kernel
      paths; and the T4 sweep (the rate of a chained re-read of a 6-192 MB
      stream against the copy rate);
@@ -85,7 +89,9 @@ Phases, one or more printed lines each, every one raising on failure:
      (more columns than the reference puts in one plan) in f32 and f64.
      rmat_like's one-step K6 (137,147 residue rows by trees) is held to
      its plain version bit for bit, y and y2, and to the golden, with its
-     phase clock, in f32, bf16 and f64.
+     phase clock, in f32, bf16 and f64; K1/K3 on its streams, which
+     exceed the L2 in every dtype, are held to colsum_plain bit for bit
+     and timed alone, with their share of the bound.
      Every arm passes the bench's checks (streamed y, resident loop y,
      each matmat column and cuSPARSE against the f64 CSR golden), writes
      its resident, streamed and SpMM rows under the reference's header,
@@ -173,9 +179,9 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 67e12, "f64": 34e12}
 # instances run as TorchSpMV.timing_loop of a resident operator
 OPS = "dasp_tpu/ops"
 INSTANCES = {
-    "colsum": ("colsum.cu", f"{OPS}/pallas_backend.py:121"),
-    "colsum_bf16": ("colsum.cu", f"{OPS}/pallas_backend.py:121"),
-    "colsum_f64": ("colsum.cu", f"{OPS}/pallas_backend.py:277"),
+    "colsum": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:121"),
+    "colsum_bf16": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:121"),
+    "colsum_f64": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:277"),
     "outgather": ("outgather.cu", f"{OPS}/pallas_backend.py:437"),
     "outgather_f64": ("outgather.cu", f"{OPS}/pallas_backend.py:378"),
     "colsum_multi": ("colsum_multi.cu", f"{OPS}/pallas_backend.py:174"),
@@ -201,6 +207,7 @@ MAIN_PATH = tuple(k for k in INSTANCES
 PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
 MC_CHIPS = 4            # chips of the multi-chip phase, all on the one card
 PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
+L2_BYTES = 50e6         # the H100's L2 (NVIDIA's data sheet)
 
 
 def log(msg):
@@ -308,8 +315,9 @@ def pass_y2(op, cm):
 
 def compare_kernels(op, xs):
     """Every kernel instance of ``op``'s dtype against its plain version
-    on the same card tensors, and each K5 slice against K1/K3 on its own
-    table (bit for bit).  Returns {instance: (scaled, abs) worst error}."""
+    on the same card tensors (K1/K3 bit for bit), and each K5 slice
+    against K1/K3 on its own table (bit for bit).  Returns {instance:
+    (scaled, abs) worst error}."""
     import torch
     from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
     from dasp_tpu_torch.ops.colsum_multi import colsum_multi, \
@@ -319,7 +327,11 @@ def compare_kernels(op, xs):
     cs, og, cm = kernel_args(op, xs)
     err = {inst("colsum", d): [0.0, 0.0], inst("colsum_multi", d): [0.0, 0.0]}
     for a in cs:
-        e = scaled_err(colsum(*a), colsum_plain(*a))
+        got, want = colsum(*a), colsum_plain(*a)
+        e = scaled_err(got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1/K3 != colsum_plain ({d}, stride "
+                                 f"{a[4]}): {e} (scaled, abs)")
         err[inst("colsum", d)] = [max(u, v) for u, v in
                                   zip(err[inst("colsum", d)], e)]
     for a in cm:
@@ -373,6 +385,46 @@ def bound(nbytes, flops, dtype):
     data sheet's peaks."""
     t_b, t_o = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def l2_fit(nbytes):
+    """Whether a kernel's tables (its bound's bytes) fit in the L2: where
+    they do, ALONE_REPS launches in a row can find them there, and a share
+    of the bound above 1 is L2 residence rather than a fault."""
+    fit = nbytes <= L2_BYTES
+    return (f"{nbytes / 1e6:.1f} MB {'fit in' if fit else 'exceed'} the "
+            f"{L2_BYTES / 1e6:.0f} MB L2"
+            + (" (a share above 1 can be L2 residence)" if fit else ""))
+
+
+def colsum_alone(name, op, x2d, card, flops):
+    """K1/K3 over every stream of ``op`` (matrix ``name``) on ``x2d``:
+    each stream held to colsum_plain bit for bit, then ALONE_REPS passes
+    in one graph, with the share of the bound; one [time] line."""
+    import torch
+    from dasp_tpu_torch.ops.colsum import colsum, colsum_plain
+    d = op.dtype
+    cs = [(st["wins"], st["vals"], st["idx"], x2d, s)
+          for (_, s, _), st in zip(op._meta.streams, op._arrays["streams"])]
+    for a in cs:
+        if not torch.equal(colsum(*a), colsum_plain(*a)):
+            raise AssertionError(f"K1/K3 != colsum_plain ({d}, stride "
+                                 f"{a[4]})")
+    nb = lambda t: t.numel() * t.element_size()
+    out_el = 8 if d == "f64" else 4
+    must = (sum(nb(a[0]) + nb(a[1]) + nb(a[2]) for a in cs) + nb(x2d)
+            + sum(a[1].shape[0] // a[4] for a in cs) * 128 * out_el)
+    ms = time_ms(graphed(lambda: [colsum(*a) for a in cs], ALONE_REPS),
+                 5) / ALONE_REPS
+    plain = time_ms(lambda: [colsum_plain(*a) for a in cs], 2)
+    b_ms, b_by = bound(must, flops, d)
+    log(f"[time] {inst('colsum', d)} alone at {name} shapes, {len(cs)} "
+        f"streams of {sum(a[0].shape[0] for a in cs)} vregs (graph replay, "
+        f"{ALONE_REPS} launches a graph): kernel {ms * 1e3:.2f} us, plain "
+        f"{plain * 1e3:.1f} us; == colsum_plain bit for bit; must move "
+        f"{must / 1e6:.2f} MB, bound {b_ms * 1e3:.2f} us ({b_by}) at "
+        f"{PEAK_BYTES / 1e12} TB/s, {b_ms / ms:.3f} of it; {l2_fit(must)} "
+        f"[{card}]")
 
 
 def resident_bytes(op):
@@ -1199,6 +1251,13 @@ def main():
                 f"/ {i['shared_bytes']} / {i['blocks_per_sm']}"
                 for s in (2, 4, 8) for kv in KV_SIZES
                 for i in [kernel_info(name, s, kv)]))
+    log(f"[build] K1/K3, the kv = 1 instances of colsum_multi.cu, registers "
+        f"/ local bytes / shared bytes / blocks a SM: " + "; ".join(
+            f"{inst('colsum', name)} stride {s}: {i['registers']} / "
+            f"{i['local_bytes']} / {i['shared_bytes']} / "
+            f"{i['blocks_per_sm']}"
+            for name in colsum.launches for s in (2, 4, 8)
+            for i in [kernel_info(name, s, 1)]))
     # the probes' instances as phase 6 launches them
     figures = lambda i: (f"{i['registers']} / {i['local_bytes']} / "
                          f"{i['shared_bytes']} / {i['blocks_per_sm']}")
@@ -1670,7 +1729,8 @@ def main():
                     f"copy rate; with x read once "
                     f"{work[base][0] / 1e6:.2f} MB, bound {b_ms * 1e3:.2f} us "
                     f"({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
-                    f"{b_ms / got[0]:.3f} of it [{card}]")
+                    f"{b_ms / got[0]:.3f} of it; " + l2_fit(work[base][0])
+                    + f" [{card}]")
                 if name == "cop20k_like":
                     # K5's library column: the pass's yardstick (one
                     # cuSPARSE call for its KV_SPMM columns), not K5's alone
@@ -1821,6 +1881,8 @@ def main():
             log(f"[bench] {name} {d}: one SpMV = one K6 launch, y and y2 == "
                 f"the plain one step's bit for bit; err {e:.3e} "
                 f"(mass-scaled, limit {E2E_TOL[d]})")
+            # K1/K3 past the L2: the reference-order colsum on its streams
+            colsum_alone(name, op, op._prep_x(x), card, 2 * csr.nnz)
             del op
     t2 = time.perf_counter()
     csr = huge_columns_matrix(np.random.default_rng(5))

@@ -1,5 +1,6 @@
-// Shared by colsum.cu (K1/K3) and colsum_multi.cu (K5): the tile shape, the
-// cell lookup of a slot's x row, and rounded arithmetic per sum type.
+// Shared by colsum_multi.cu (K1/K3 at kv = 1, K5), resident.cu (K6) and the
+// probes: the tile shape, the cell lookup of a slot's x row, and rounded
+// arithmetic per sum type.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,27 +1,39 @@
-// colsum_multi (K5): the colsum of K1/K3 against kv stacked x tables, for
-// SpMM (Y = A X, kv columns of X per pass).
+// colsum_multi (K5): the windowed-gather colsum against kv stacked x
+// tables, for SpMM (Y = A X, kv columns of X per pass); its kv = 1
+// instance is K1 (and, in fp64, K3), the single-vector colsum.
 //
-// Replaces dasp_tpu/ops/pallas_backend.py:_make_colsum_multi (:174-249).
-// x3d is (kv*S, 128): table k (column k of X, as an x2d table) starts at
-// row k*S, and the windows in wins are row offsets WITHIN one table, so
-// slot (i, lam) of vreg v gathers x3d[k*S + wins[v, 1+c] + q, lam] for
-// every k (q and c read at the cell (i, lam), as in colsum.cu).  Each A
-// tile is read once for the kv vectors, and the output is (kv, NV*R, 128):
-// slice k is exactly what K1 (K3 in fp64) computes on table k.
+// Replaces dasp_tpu/ops/pallas_backend.py:_make_colsum_multi (:174-249)
+// and, at kv = 1, _make_colsum (:121-160, body _colsum_body :63-118) and
+// _make_colsum_dd (:277-375).  A stream is NV "vregs", each an 8x128 tile
+// of values and int16 slot metadata idx = c<<10 | q<<7 | lam.  x3d is
+// (kv*S, 128): table k (column k of X, as an x2d table) starts at row k*S,
+// and the windows in wins are row offsets WITHIN one table, so slot (i, j)
+// of vreg v multiplies vals[v,i,j] by
+//     x3d[k*S + wins[v, 1 + c] + q, lam],   lam = idx[v,i,j] & 127,
+// for every k, where q = (cell>>7)&7 and c = cell>>10 are read at the CELL
+// (i, lam) of the same tile, not at (i, j): one cell names one x word, and
+// every slot of a sublane that gathers lane lam shares it (wplan.py).  The
+// products of each group of `stride` sublanes are summed, giving R =
+// 8/stride output rows per vreg.  Each A tile is read once for the kv
+// vectors, and the output is (kv, NV*R, 128).
 //
 // Instances (value type / x, sum and output type), kv in {1, 2, 4, 8}:
 //   dasp_colsum_multi_f32   float          / float
-//   dasp_colsum_multi_bf16  __nv_bfloat16  / float
-//   dasp_colsum_multi_f64   double         / double
-// The reference's fp64 SpMM tier (spmm_fn_dd, :1043) runs its kernel twice
-// in f32 on hi/lo cross products; Hopper has fp64, so one fp64 pass
-// replaces it, without that tier's 2^-24-of-row-mass error.
+//   dasp_colsum_multi_bf16  __nv_bfloat16  / float   (value upcast, exact)
+//   dasp_colsum_multi_f64   double         / double  (K3 at kv = 1)
+// The reference runs fp64 as double-double f32 pairs because the TPU has
+// no fp64 datapath (K3, and its SpMM tier spmm_fn_dd, :1043, runs its
+// kernel twice in f32 on hi/lo cross products); Hopper has one, so one
+// fp64 pass replaces them, without that tier's 2^-24-of-row-mass error.
 //
 // What bounds it on this card.  In bytes, the A stream (value + 2 B of idx
 // a slot) read once per kv vectors and the kv output slices (0.8 / 2.5 us
 // a vector at the copy rate on cop20k_like / webbase_like in f32).  The
-// first design (K1's shape: a block of 4 vregs that exits, kv * R sums in
-// registers) ran at 0.45-0.52 of that bound on cop20k_like.
+// first design (a block of 4 vregs that stages the idx tile, syncs and
+// exits, kv * R sums in registers) ran at 0.45-0.52 of that bound on
+// cop20k_like; K1's kernel of that shape at 0.49-0.62, lowest in bf16,
+// whose 4 B a slot leave the least time to hide a latency chain that does
+// not shrink with the value type.
 // chip_smoke.py's split of it (K5 at kv = 1, 2, 4, 8, as it is and with
 // every gather sent to one fixed row of its table, K1 beside them) showed
 // that each further vector cost 3.3-4.2 us in f32 wherever its gathers
@@ -46,24 +58,39 @@
 //     3-13 % slower in f32 and bf16 at kv = 4, within 2 % in fp64 and at
 //     kv = 8);
 //   - the gathers of up to 8 sublanes (32 words a thread) are issued
-//     before the first product (16 words: within 3 %);
+//     before the first product (16 words: within 3 %); at kv = 1 that is
+//     every sublane of the vreg (8 words, 16 in fp64);
 //   - a level's kv sums live in kv registers and are stored when the level
 //     ends (128 consecutive words: coalesced, each word written once), so
 //     the kernel holds kv sums, not kv * R.
+// At kv = 1 (K1, K3) the same holds (probes/k5_levers.py 1, the same
+// card): with the x gathers sent past the L1 a pass is 1.1-4.9x slower,
+// unstaged 14-22 % slower in f32 and bf16 (1-3 % in fp64), in blocks of 4
+// vregs up to 14 % slower.  So K1/K3 are this instance: it runs them at
+// 0.58-0.83 of their bound on cop20k_like and 0.68-0.82 on rmat_like,
+// whose streams exceed the L2, where a kernel of K1's first shape ran at
+// 0.49-0.62 (chip_smoke.py, PERF.md section 6).
 // Tried and left out: x interleaved by vector as (S, 128, kv) with one
 // vector load a slot (within 4 % at kv = 4; at kv = 8 9-20 % slower on
 // cop20k_like and 0-5 % faster on webbase_like); a contiguous share of the
 // vregs per block (0-19 % slower); streaming loads (ld.global.cs) of the
-// values (up to 11 % faster on cop20k_like, up to 10 % slower on
-// webbase_like).
-// The products and adds run in K1's order with rounded mul/add (each
-// level starts from zero and adds its sublanes in order), so slice k
-// equals K1 (K3) on table k bit for bit.
+// values (at kv = 4 up to 11 % faster on cop20k_like, up to 10 % slower on
+// webbase_like; at kv = 1 33-40 % slower in f32 and bf16, 5-10 % faster
+// in fp64, on an instance that no path with a K6 schedule runs).
+// The products and adds run in the reference's order with rounded mul/add
+// (each level starts from zero and adds its sublanes in order; nvcc would
+// otherwise contract a*x + acc into an FMA), so slice k equals the kv = 1
+// instance (K1, K3) on table k bit for bit, and both equal
+// ops/colsum.py:colsum_plain.
 //
-// Traps handled: P is a runtime argument, at most MAX_P (the packer's
-// cap); pad vregs give zero rows; an unsupported kv, stride or P is
-// refused with cudaErrorInvalidValue.  idx must be 16-byte aligned (the
-// wrapper checks).
+// Traps handled: idx is upcast to int before shifting (values are
+// non-negative, c <= 31, so idx < 2^15); P is a runtime argument (the row
+// stride of wins), at most MAX_P (the packer's cap); the round tag is
+// clamped to P-1, which is what the reference does at P=1 (it reads window
+// 1 whatever the tag) and a no-op for the tags the packer emits; pad vregs
+// (all-zero tiles) give zero rows; NV need not be a multiple of anything;
+// an unsupported kv, stride or P is refused with cudaErrorInvalidValue.
+// idx must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -273,4 +300,10 @@ extern "C" int dasp_colsum_multi_f64(const void* wins, const void* vals,
                                      int S, int kv, void* stream) {
   return launch<double, double>(wins, vals, idx, x3d, out, nv, P, stride, S,
                                 kv, stream);
+}
+
+// the name of a CUDA error code, for the wrappers' messages
+// (ops/_build.py:check)
+extern "C" const char* dasp_cuda_error_name(int rc) {
+  return cudaGetErrorName(static_cast<cudaError_t>(rc));
 }

@@ -39,7 +39,6 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C name -> argument types (pointers and the stream as c_void_p, so a
 # 64-bit address is never cut to a 32-bit int)
-_COLSUM = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _COLSUM_MULTI = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _OUTGATHER = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P)
 _RESIDENT = (_P, _P, _I, _P, _I, _P,    # desc, items, n_items, wide, n_wide,
@@ -58,11 +57,8 @@ _ROUNDCOST = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _STREAM = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 _GATHER = (_P, _P, _P, _I, _I, _P)
 SIGNATURES = {
-    # wins, vals, idx, x2d, out, nv, P, stride, stream
-    "dasp_colsum_f32": _COLSUM,
-    "dasp_colsum_bf16": _COLSUM,
-    "dasp_colsum_f64": _COLSUM,
-    # wins, vals, idx, x3d, out, nv, P, stride, S, kv, stream
+    # K1/K3 (kv = 1) and K5: wins, vals, idx, x3d, out, nv, P, stride, S,
+    # kv, stream
     "dasp_colsum_multi_f32": _COLSUM_MULTI,
     "dasp_colsum_multi_bf16": _COLSUM_MULTI,
     "dasp_colsum_multi_f64": _COLSUM_MULTI,

@@ -2,7 +2,7 @@
 the card: one build of ``k5_levers.cu`` per variant, timed beside each
 other.
 
-    python -m dasp_tpu_torch.probes.k5_levers
+    python -m dasp_tpu_torch.probes.k5_levers [kv,...]   # default 4,8
 
 ``k5_levers.cu`` is K5 with its decisions as compile-time switches, every
 default the shipped design's: the x tables stacked or interleaved by
@@ -13,7 +13,8 @@ the words of gathers in flight, and the cache policy of the x gathers and
 of the value loads.  ``VARIANTS`` turns one decision at a time (and, last,
 all of this kernel's first draft at once).
 
-For each suite matrix (cop20k_like, webbase_like), dtype and kv (4, 8) it
+For each suite matrix (cop20k_like, webbase_like), dtype and kv (4 and 8,
+or the kv given; kv = 1 is the K1/K3 instance) it
 holds every variant's output equal, bit for bit, to ``colsum_multi``'s
 (the shipped kernel, which ``chip_smoke.py`` holds against its plain
 version), then times one pass over every stream of the plan, 20 launches
@@ -27,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -106,7 +108,7 @@ def run_variant(lib, dtype: str, st: dict, x: torch.Tensor, stride: int,
     return out
 
 
-def main() -> None:
+def main(kvs=KVS) -> None:
     dev = require_cuda("k5_levers")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -122,13 +124,13 @@ def main() -> None:
                                (s for _, s, _ in op._meta.streams)))
             rng = np.random.default_rng(5)
             tabs = [op._prep_x(rng.standard_normal(op.n_cols))
-                    for _ in range(max(KVS))]
+                    for _ in range(max(kvs))]
             k1 = graph_ms(lambda: [
                 [colsum(st["wins"], st["vals"], st["idx"], tabs[0], s)
                  for st, s in streams] for _ in range(REPS)]) / REPS * 1e3
             print(f"[levers] {arm} {d} streams {list(op._meta.streams)}: "
                   f"K1/K3 {k1:.1f} us [{card}]", flush=True)
-            for kv in KVS:
+            for kv in kvs:
                 stacked = torch.cat(tabs[:kv])
                 layouts = {True: stacked, False: torch.stack(
                     tabs[:kv], -1).contiguous()}
@@ -163,4 +165,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(int(k) for k in sys.argv[1].split(",")) if sys.argv[1:]
+         else KVS)
