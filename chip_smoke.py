@@ -22,7 +22,10 @@ Phases, one or more printed lines each, every one raising on failure:
      steps, all bit for bit; the registers, local bytes, shared bytes and
      blocks a SM of every K5 instance (the kv = 1 ones again on a [build]
      K1 line: they are K1/K3), of the T1 bodies and of the T2/T3
-     instances phase 6 launches are printed after the build;
+     instances phase 6 launches are printed after the build, and K6's
+     three instances on a [build] K6 line (registers, local bytes, static
+     and dynamic shared bytes, blocks a SM, threads a block; the fp64
+     instance must use no local memory);
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16 (each call
@@ -89,9 +92,11 @@ Phases, one or more printed lines each, every one raising on failure:
      (more columns than the reference puts in one plan) in f32 and f64.
      rmat_like's one-step K6 (137,147 residue rows by trees) is held to
      its plain version bit for bit, y and y2, and to the golden, with its
-     phase clock, in f32, bf16 and f64; K1/K3 on its streams, which
-     exceed the L2 in every dtype, are held to colsum_plain bit for bit
-     and timed alone, with their share of the bound.
+     phase clock, in f32, bf16 and f64, and timed graphed beside a K6
+     chain's step ([time] rmat_like ... one device_call); K1/K3 on its
+     streams, which exceed the L2 in every dtype, are held to
+     colsum_plain bit for bit and timed alone, with their share of the
+     bound.
      Every arm passes the bench's checks (streamed y, resident loop y,
      each matmat column and cuSPARSE against the f64 CSR golden), writes
      its resident, streamed and SpMM rows under the reference's header,
@@ -1218,8 +1223,8 @@ def main():
     from dasp_tpu_torch.ops.colsum_multi import KV_SIZES, colsum_multi, \
         colsum_multi_plain, kernel_info
     from dasp_tpu_torch.ops.outgather import outgather, outgather_plain
-    from dasp_tpu_torch.ops.resident import resident_loop, \
-        resident_loop_plain
+    from dasp_tpu_torch.ops.resident import INFO_FIELDS, resident_loop, \
+        resident_loop_plain, kernel_info as resident_info
     from dasp_tpu_torch.probes import gather_bench as t1, \
         roundcost_ab as t2, resident_probe as t4, stream_bench2 as t3
     from dasp_tpu_torch.sparse import mixed_categories, random_csr
@@ -1258,6 +1263,13 @@ def main():
             f"{i['blocks_per_sm']}"
             for name in colsum.launches for s in (2, 4, 8)
             for i in [kernel_info(name, s, 1)]))
+    k6_info = {d: resident_info(d) for d in resident_loop.launches}
+    log(f"[build] K6 resident.cu {' / '.join(INFO_FIELDS)}: " + "; ".join(
+        f"dasp_resident_{d}: " + " / ".join(str(i[k]) for k in INFO_FIELDS)
+        for d, i in k6_info.items()))
+    if k6_info["f64"]["local_bytes"]:
+        raise AssertionError("dasp_resident_f64 uses local memory (stack "
+                             "or spills): its shape is designed for none")
     # the probes' instances as phase 6 launches them
     figures = lambda i: (f"{i['registers']} / {i['local_bytes']} / "
                          f"{i['shared_bytes']} / {i['blocks_per_sm']}")
@@ -1881,6 +1893,14 @@ def main():
             log(f"[bench] {name} {d}: one SpMV = one K6 launch, y and y2 == "
                 f"the plain one step's bit for bit; err {e:.3e} "
                 f"(mass-scaled, limit {E2E_TOL[d]})")
+            # K6 past the L2: one SpMV and a chain's step, graphed
+            x1 = op._prep_x(x)
+            one = time_ms(graphed(lambda: op.device_call(x1)), 5)
+            step = time_ms(graphed(lambda: resident_loop(
+                op._meta, op._arrays, x1, LONG_CHAIN)), 2) / LONG_CHAIN
+            log(f"[time] {name} {d} one device_call graph {one * 1e3:.1f} "
+                f"us; resident K6 step (chain {LONG_CHAIN}) graph "
+                f"{step * 1e3:.1f} us [{card}]")
             # K1/K3 past the L2: the reference-order colsum on its streams
             colsum_alone(name, op, op._prep_x(x), card, 2 * csr.nnz)
             del op

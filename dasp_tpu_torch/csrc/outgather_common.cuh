@@ -11,7 +11,8 @@
 // block with no used slot writes its zeros at once.  For each chunk, every perm word and then
 // every y2 gather is issued before the first add, so a lane has
 // 4 x OG_CHUNK (f32) or 2 x OG_CHUNK (f64) gathers in flight where the
-// one-slot loop had one.  The
+// one-slot loop had one (K6's instances of two lane columns a thread, with
+// half as many threads, take chunks of 2 x OG_CHUNK slots).  The
 // adds run in slot order from zero, each rounded, and a dropped slot adds
 // the zero row's zero (outgather_plain adds it too), so the sums equal
 // outgather_plain's.
@@ -66,12 +67,12 @@ __device__ __forceinline__ uint32_t og_perm(const int8_t* row, int lane) {
 }
 
 // output block b, by the og_threads<T>() threads of a group (lane = the
-// thread's index in it).  The gathers and adds are unconditional, so that
-// the compiler issues every load of a chunk before its first add: a
-// zero-row slot (and a slot past K in the last chunk) gathers word 0 of
-// the zero row and adds that zero, which changes no sum; only its perm
-// word is not read.
-template <typename T>
+// thread's index in it), CHUNK slots' loads in flight.  The gathers and
+// adds are unconditional, so that the compiler issues every load of a
+// chunk before its first add: a zero-row slot (and a slot past K in the
+// last chunk) gathers word 0 of the zero row and adds that zero, which
+// changes no sum; only its perm word is not read.
+template <typename T, int CHUNK = OG_CHUNK>
 __device__ __forceinline__ void outgather_block(
     const int32_t* __restrict__ src, const int8_t* __restrict__ perm,
     const T* y2, T* out, int64_t b, int B, int K, int zero_row, int lane,
@@ -90,24 +91,24 @@ __device__ __forceinline__ void outgather_block(
   for (int q = 0; q < L; ++q) acc.v[q] = T(0);
   if (any) {                    // uniform in the group: one src row
 #pragma unroll
-    for (int k0 = 0; k0 < OG_KMAX; k0 += OG_CHUNK) {
+    for (int k0 = 0; k0 < OG_KMAX; k0 += CHUNK) {
       if (k0 >= K) break;
-      uint32_t pw[OG_CHUNK];
-      T v[OG_CHUNK][L];
+      uint32_t pw[CHUNK];
+      T v[CHUNK][L];
 #pragma unroll
-      for (int u = 0; u < OG_CHUNK; ++u)
+      for (int u = 0; u < CHUNK; ++u)
         pw[u] = s[k0 + u] != zero_row
                     ? og_perm<L>(perm + ((int64_t)(k0 + u) * B + b) *
                                             OG_LANES, lane)
                     : 0u;
 #pragma unroll
-      for (int u = 0; u < OG_CHUNK; ++u)
+      for (int u = 0; u < CHUNK; ++u)
 #pragma unroll
         for (int q = 0; q < L; ++q)
           v[u][q] = y2[(int64_t)s[k0 + u] * OG_LANES +
                        ((pw[u] >> (8 * q)) & 255)];
 #pragma unroll
-      for (int u = 0; u < OG_CHUNK; ++u)
+      for (int u = 0; u < CHUNK; ++u)
 #pragma unroll
         for (int q = 0; q < L; ++q) acc.v[q] = og_add(acc.v[q], v[u][q]);
     }

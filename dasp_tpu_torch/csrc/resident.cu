@@ -32,11 +32,7 @@
 // sums slots i, i + 32, ...) and the lanes added by a shuffle tree.  The
 // sums wait in rsum, and in phase D of the last step the thread that
 // outgathers a row's lane adds its sum to it, so a single-vector SpMV is
-// one launch at iters = 1.  The body sits at the 64-register cap, and
-// where this code goes moves the spills of the whole kernel (PERF.md §6:
-// of five placements measured, this one, inline in the step loop and in
-// the outgather, costs single steps the least and a chain's f64 step
-// 5-11 %).
+// one launch at iters = 1.
 // Phases are separated by cg::this_grid().sync(): two per step (after A,
 // after D) when the plan has no wide slice and no long row, three with
 // them, and none after the last step's D unless the clock runs; there is
@@ -95,17 +91,35 @@
 // has no tap at the last step.  PERF.md has the split before and
 // after.
 //
-// Shape on Hopper: blocks of 128 x VPB threads, as many as are co-resident
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, fewer if the work
-// needs fewer; at most 64 registers a thread, so that two blocks fit a
-// SM), launched by cudaLaunchCooperativeKernel with the two item stages
-// in dynamic shared memory; each phase walks its work in a grid-stride
-// loop.  In (A) thread j of a thread row owns lane column j of its vreg,
-// and reads the cell of each slot from the staged idx tile, as in K1; a
-// stream's stride and the item's F select a templated body.  y2, the
-// chunk rows, the totals and x_scr live in device memory (L2 for all but
-// the largest plans): the wrapper allocates them, the kernel allocates
-// nothing.
+// Shape on Hopper (`Shape`): blocks of VPB thread rows, as many as are
+// co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, fewer
+// if the work needs fewer), launched by cudaLaunchCooperativeKernel with
+// two item stages in dynamic shared memory; each phase walks its work in a
+// grid-stride loop.  In (A) thread j of a thread row owns the lane
+// columns j, j + 128 / COLS, ... of its vreg, and reads the cell of each
+// slot from the staged idx tile, as in K1; a stream's stride and the
+// item's F select a templated body.  Each value type runs the shape that
+// probes/k6_levers.py measured fastest on cop20k_like, webbase_like and
+// rmat_like (PERF.md §6).  fp64 threads own two lane columns: thread
+// rows of 64, 256 threads a block, two blocks a SM at 128 registers with
+// no local memory, 16 gathers a thread and as many in flight a SM as at
+// one column (8,192); phase D and the tap keep twice the loads in flight
+// a thread, so a SM keeps as many as at one column.  At one column and
+// 64 registers the fp64 body spilled (168 B of local memory a thread,
+// 176 B of spill stores; the f64 step ran 5-11 % slower once the
+// residue's code added to them), and one block of 512 threads a SM at
+// 128 registers halved the x gathers in flight.  f32 and bf16 keep one
+// column a thread (512 threads, two blocks a SM, 64 registers): two
+// columns were slower at rmat_like (f32) and webbase_like (bf16).  Every
+// instance copies its values with an L2 evict-first policy, so that x
+// and the idx tiles stay in the L2 for the gathers (fp64 values are 8 of
+// a slot's 10 bytes).  Per f64 step of a chain of 100 at cop20k_like /
+// webbase_like / rmat_like on an NVIDIA H100 80GB HBM3 at 700 W: 26.08 /
+// 41.24 / 266.17 us against 33.53 / 48.20 / 272.20 us at one column a
+// thread and 64 registers.
+// y2, the chunk rows, the totals and x_scr live in device memory (L2 for
+// all but the largest plans): the wrapper allocates them, the kernel
+// allocates nothing.
 
 #include <algorithm>
 
@@ -126,12 +140,31 @@ constexpr int VPB = 4;                     // thread rows (vregs) per block
 constexpr int MAX_R = 4;                   // y2 levels per slice (stride 2)
 constexpr int LONG_PACK = 127;             // long scalars per y2 row
 constexpr int COMBINE = 8;                 // chunk rows in flight in (C)
-constexpr int TAP_U = 2;                   // x vectors in flight in the tap
+constexpr int TAP_U = 2;                   // x vectors in flight a lane
+                                           // column in the tap
 constexpr int MAX_P = 32;                  // windows of a vreg (the packer's
                                            // P_CLASSES[-1])
 constexpr int WARP = 32;
 constexpr int RES_WARP_MIN = 64;           // tree slots from which a residue
                                            // row takes a whole warp
+
+// The launch shape of an instance: COLS lane columns a thread (a thread
+// row is TW = 128 / COLS threads, lanes j, j + TW, ...; a block VPB thread
+// rows), MINB blocks a SM that the compiler must leave registers for
+// (65,536 / (threads x MINB) a thread), STAGES item stages in shared
+// memory (STAGES - 1 items' operands in flight while one computes), and
+// whether the values are copied with an L2 evict-first policy.
+template <int COLS_, int MINB_, int STAGES_, bool EVICT_FIRST_>
+struct Shape {
+  static_assert(LANES % COLS_ == 0 && LANES / COLS_ > MAX_P,
+                "a thread row copies a vreg's wins row, a word a thread");
+  static constexpr int COLS = COLS_;
+  static constexpr int TW = LANES / COLS_;
+  static constexpr int THREADS = TW * VPB;
+  static constexpr int MINB = MINB_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool EVICT_FIRST = EVICT_FIRST_;
+};
 
 // int64 fields of one stream's row of the descriptor table, in the order
 // of ops/resident.py:DESC_FIELDS
@@ -193,28 +226,32 @@ __device__ __forceinline__ long long global_ns() {
 
 // The phase clock: thread 0 of block 0 reads %globaltimer at the start,
 // right after every grid.sync() and at the end, and adds each interval to
-// its phase; the times thus include the wait for the slowest block.  With
-// a null pointer it reads no clock.
+// its phase's word of `stamps` in device memory (so that no array of the
+// clock sits in a thread's local memory); the times thus include the
+// wait for the slowest block.  It is compiled only into the kernel that a
+// call with `stamps` launches (ON): every other call's kernel holds no
+// register for it.
+template <bool ON>
 struct Clock {
   long long* out;
-  long long last, ns[STAMP_WORDS];
+  long long last;
   __device__ explicit Clock(long long* stamps)
-      : out(blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0
+      : out(ON && blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0
                 ? stamps : nullptr), last(0) {
-    for (int k = 0; k < STAMP_WORDS; ++k) ns[k] = 0;
-    if (out) last = global_ns();
+    if (!out) return;
+    for (int k = 0; k < STAMP_WORDS; ++k) out[k] = 0;
+    last = global_ns();
   }
   __device__ void lap(int phase) {
     if (!out) return;
     const long long now = global_ns();
-    ns[phase] += now - last;
+    out[phase] += now - last;
     last = now;
   }
   __device__ void write(int per_sm) {
     if (!out) return;
-    ns[S_GRID] = gridDim.x;
-    ns[S_PER_SM] = per_sm;
-    for (int k = 0; k < STAMP_WORDS; ++k) out[k] = ns[k];
+    out[S_GRID] = gridDim.x;
+    out[S_PER_SM] = per_sm;
   }
 };
 
@@ -230,79 +267,109 @@ struct alignas(16) Stage {
 };
 
 // Start the copies of item g into `st`; every thread commits one group, so
-// that the groups of all threads stay in step.
-template <typename V>
+// that the groups of all threads stay in step.  Thread j of a thread row
+// copies the 16-byte pieces j, j + TW, ... of its vreg's idx tile and
+// values.
+template <typename V, class S>
 __device__ __forceinline__ void stage_item(Stage<V>& st, const int32_t* items,
                                            const int64_t* desc, int64_t g,
-                                           int t, int j) {
+                                           int t, int j, uint64_t policy) {
   const int32_t* item = items + g * NITEM;
   if (t == 0 && j < NITEM) cp_async4(&st.item[j], item + j);
   if (t < item[I_NV]) {
     const int64_t* d = desc + (int64_t)item[I_STREAM] * NDESC;
     const int64_t v = (int64_t)item[I_V0] + t;
     const int P = (int)d[D_P];
-    cp_async16(&st.tile[t][0][0] + 8 * j,
-               reinterpret_cast<const int16_t*>(d[D_IDX]) + v * SUB * LANES +
-                   8 * j);
+    constexpr int TILE = SUB * LANES * (int)sizeof(int16_t) / 16;
     constexpr int CHUNKS = SUB * LANES * (int)sizeof(V) / 16;
+    static_assert(TILE % S::TW == 0 && CHUNKS % S::TW == 0,
+                  "a thread row copies whole 16-byte pieces");
+    const int16_t* gt =
+        reinterpret_cast<const int16_t*>(d[D_IDX]) + v * SUB * LANES;
+#pragma unroll
+    for (int k = 0; k < TILE / S::TW; ++k)
+      cp_async16(&st.tile[t][0][0] + 8 * (j + k * S::TW),
+                 gt + 8 * (j + k * S::TW));
     const char* gv = reinterpret_cast<const char*>(
         reinterpret_cast<const V*>(d[D_VALS]) + v * SUB * LANES);
     char* sv = reinterpret_cast<char*>(&st.vals[t][0][0]);
 #pragma unroll
-    for (int c = j; c < CHUNKS; c += LANES) cp_async16(sv + 16 * c, gv + 16 * c);
-    if (j <= P)
+    for (int k = 0; k < CHUNKS / S::TW; ++k) {
+      const int c = j + k * S::TW;
+      if constexpr (S::EVICT_FIRST)
+        cp_async16_hint(sv + 16 * c, gv + 16 * c, policy);
+      else
+        cp_async16(sv + 16 * c, gv + 16 * c);
+    }
+    if (j <= P)   // TW >= MAX_P + 1
       cp_async4(&st.wins[t][j],
                 reinterpret_cast<const int32_t*>(d[D_WINS]) + v * (P + 1) + j);
   }
   cp_async_commit();
 }
 
-// one vreg's colsum (K1's body) from its staged operands: R = 8/STRIDE
-// level sums of lane j in registers; then its R/F folded levels lv and its
-// lane sum ls
-template <typename V, typename A, int STRIDE, int F>
+// one vreg's colsum (K1's body) from its staged operands, for the COLS
+// lane columns j + c * TW of the thread: R = 8/STRIDE level sums a column
+// in registers; then its R/F folded levels lv[c] and its lane sum ls[c]
+template <typename V, typename A, int COLS, int STRIDE, int F>
 __device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
                                             const int32_t* w, int P,
                                             const V (*vals)[LANES],
                                             const A* x, int j,
-                                            A (&lv)[MAX_R], A& ls) {
+                                            A (&lv)[COLS][MAX_R],
+                                            A (&ls)[COLS]) {
   constexpr int R = SUB / STRIDE;
-  A acc[R];
+  constexpr int TW = LANES / COLS;
+  A acc[COLS][R];
 #pragma unroll
-  for (int L = 0; L < R; ++L) acc[L] = A(0);
+  for (int c = 0; c < COLS; ++c)
+#pragma unroll
+    for (int L = 0; L < R; ++L) acc[c][L] = A(0);
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
-    const int lam = (int)tile[i][j] & 127;
-    const A xv = x[x_row(tile[i], lam, w, P) * LANES + lam];
-    acc[i / STRIDE] = add_rn(acc[i / STRIDE], mul_rn(widen(vals[i][j]), xv));
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int jc = j + c * TW;
+      const int lam = (int)tile[i][jc] & 127;
+      const A xv = x[x_row(tile[i], lam, w, P) * LANES + lam];
+      acc[c][i / STRIDE] =
+          add_rn(acc[c][i / STRIDE], mul_rn(widen(vals[i][jc]), xv));
+    }
   }
-  ls = acc[0];
 #pragma unroll
-  for (int L = 1; L < R; ++L) ls = add_rn(ls, acc[L]);
+  for (int c = 0; c < COLS; ++c) {
+    ls[c] = acc[c][0];
 #pragma unroll
-  for (int r = 0; r < R / F; ++r) {
-    lv[r] = acc[r * F];
+    for (int L = 1; L < R; ++L) ls[c] = add_rn(ls[c], acc[c][L]);
 #pragma unroll
-    for (int f = 1; f < F; ++f) lv[r] = add_rn(lv[r], acc[r * F + f]);
+    for (int r = 0; r < R / F; ++r) {
+      lv[c][r] = acc[c][r * F];
+#pragma unroll
+      for (int f = 1; f < F; ++f)
+        lv[c][r] = add_rn(lv[c][r], acc[c][r * F + f]);
+    }
   }
 }
 
-template <typename V, typename A>
+template <typename V, typename A, int COLS>
 __device__ __forceinline__ void colsum_item(int stride, int F,
                                             const int16_t (*tile)[LANES],
                                             const int32_t* w, int P,
                                             const V (*vals)[LANES],
                                             const A* x, int j,
-                                            A (&lv)[MAX_R], A& ls) {
+                                            A (&lv)[COLS][MAX_R],
+                                            A (&ls)[COLS]) {
   if (stride == 8) {
-    colsum_fold<V, A, 8, 1>(tile, w, P, vals, x, j, lv, ls);
+    colsum_fold<V, A, COLS, 8, 1>(tile, w, P, vals, x, j, lv, ls);
   } else if (stride == 4) {
-    if (F == 2) colsum_fold<V, A, 4, 2>(tile, w, P, vals, x, j, lv, ls);
-    else        colsum_fold<V, A, 4, 1>(tile, w, P, vals, x, j, lv, ls);
+    if (F == 2) colsum_fold<V, A, COLS, 4, 2>(tile, w, P, vals, x, j, lv, ls);
+    else        colsum_fold<V, A, COLS, 4, 1>(tile, w, P, vals, x, j, lv, ls);
   } else {
-    if (F == 4)      colsum_fold<V, A, 2, 4>(tile, w, P, vals, x, j, lv, ls);
-    else if (F == 2) colsum_fold<V, A, 2, 2>(tile, w, P, vals, x, j, lv, ls);
-    else             colsum_fold<V, A, 2, 1>(tile, w, P, vals, x, j, lv, ls);
+    if (F == 4) colsum_fold<V, A, COLS, 2, 4>(tile, w, P, vals, x, j, lv, ls);
+    else if (F == 2)
+      colsum_fold<V, A, COLS, 2, 2>(tile, w, P, vals, x, j, lv, ls);
+    else
+      colsum_fold<V, A, COLS, 2, 1>(tile, w, P, vals, x, j, lv, ls);
   }
 }
 
@@ -345,38 +412,51 @@ __device__ __forceinline__ void residue_sums(const Params<A>& p,
   }
 }
 
-template <typename V, typename A>
-__global__ void __launch_bounds__(LANES * VPB, 2)
+template <typename V, typename A, class S, bool CLOCK>
+__global__ void __launch_bounds__(S::THREADS, S::MINB)
 resident_kernel(Params<A> p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage<V>* const stage = reinterpret_cast<Stage<V>*>(smem);   // two
+  Stage<V>* const stage = reinterpret_cast<Stage<V>*>(smem);   // S::STAGES
   __shared__ A red[VPB][MAX_R][LANES];     // folded levels of the item
   __shared__ A lsum[VPB][LANES];           // lane sums of the totals
   cg::grid_group grid = cg::this_grid();
-  const int j = threadIdx.x;
+  constexpr int TW = S::TW;
+  constexpr int NS = S::STAGES;
+  const int j = threadIdx.x;               // lane columns j, j + TW, ...
   const int t = threadIdx.y;
   const int64_t row = (int64_t)blockIdx.x * VPB + t;   // this thread row
   const int64_t rows = (int64_t)gridDim.x * VPB;       // thread rows
-  const int64_t tid = row * LANES + j;
-  const int64_t nthreads = rows * LANES;
+  const int64_t tid = row * TW + j;
+  const int64_t nthreads = rows * TW;
   const int64_t long_base = (int64_t)(p.Z - p.n_long_rows) * LANES;
   const bool mid = p.n_wide > 0 || p.n_long_rows > 0;
-  Clock clock(p.stamps);
-  if (row == 0) p.y2[(int64_t)p.Z * LANES + j] = A(0);  // read from (D) on
-  // the block's first item: its operands do not change from step to step,
-  // so each step stages the next step's first item before its barriers
+  uint64_t policy = 0;
+  if constexpr (S::EVICT_FIRST) policy = l2_evict_first();
+  Clock<CLOCK> clock(p.stamps);
+  if (row == 0) {                           // read from (D) on
+#pragma unroll
+    for (int c = 0; c < S::COLS; ++c)
+      p.y2[(int64_t)p.Z * LANES + j + c * TW] = A(0);
+  }
+  // the block's first NS - 1 items: their operands do not change from
+  // step to step, so each step stages the next step's before its barriers
   int buf = 0;
-  if (blockIdx.x < p.n_items)
-    stage_item(stage[buf], p.items, p.desc, blockIdx.x, t, j);
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k)
+    if (blockIdx.x + (int64_t)k * gridDim.x < p.n_items)
+      stage_item<V, S>(stage[k], p.items, p.desc,
+                       blockIdx.x + (int64_t)k * gridDim.x, t, j, policy);
 
   for (int it = 0; it < p.iters; ++it) {
     const A* x = it == 0 ? p.x : p.x_scr;
-    // (A) the schedule, two items in flight: item g is computed from its
-    // staged operands while those of g + gridDim.x are copied in
+    // (A) the schedule, NS items in flight: item g is computed from its
+    // staged operands while those of the next NS - 1 are copied in
     for (int64_t g = blockIdx.x; g < p.n_items; g += gridDim.x) {
-      if (g + gridDim.x < p.n_items) {
-        stage_item(stage[buf ^ 1], p.items, p.desc, g + gridDim.x, t, j);
-        cp_async_wait<1>();
+      const int64_t next = g + (int64_t)(NS - 1) * gridDim.x;
+      if (next < p.n_items) {
+        stage_item<V, S>(stage[(buf + NS - 1) % NS], p.items, p.desc, next,
+                         t, j, policy);
+        cp_async_wait<NS - 1>();
       } else {
         cp_async_wait<0>();
       }
@@ -390,32 +470,44 @@ resident_kernel(Params<A> p) {
       const bool total = (item[I_MASK] >> t) & 1;
       A* const o = item[I_DST] == DST_Y2 ? p.y2 : p.cbuf;
       const int64_t out0 = item[I_OUT];
-      A lv[MAX_R], ls = A(0);
+      A lv[S::COLS][MAX_R], ls[S::COLS];
 #pragma unroll
-      for (int r = 0; r < MAX_R; ++r) lv[r] = A(0);
+      for (int c = 0; c < S::COLS; ++c) {
+        ls[c] = A(0);
+#pragma unroll
+        for (int r = 0; r < MAX_R; ++r) lv[c][r] = A(0);
+      }
       if (live) {
-        colsum_item<V, A>((int)d[D_STRIDE], item[I_F], st.tile[t],
-                          &st.wins[t][1], (int)d[D_P], st.vals[t], x, j, lv,
-                          ls);
-        if (w8 == 1 && item[I_DST] != DST_NONE) {
+        colsum_item<V, A, S::COLS>((int)d[D_STRIDE], item[I_F], st.tile[t],
+                                   &st.wins[t][1], (int)d[D_P], st.vals[t],
+                                   x, j, lv, ls);
 #pragma unroll
-          for (int r = 0; r < MAX_R; ++r)
-            if (r < R) o[(out0 + (int64_t)t * R + r) * LANES + j] = lv[r];
-        } else if (w8 > 1) {
+        for (int c = 0; c < S::COLS; ++c) {
+          const int jc = j + c * TW;
+          if (w8 == 1 && item[I_DST] != DST_NONE) {
 #pragma unroll
-          for (int r = 0; r < MAX_R; ++r)
-            if (r < R) red[t][r][j] = lv[r];
+            for (int r = 0; r < MAX_R; ++r)
+              if (r < R) o[(out0 + (int64_t)t * R + r) * LANES + jc] = lv[c][r];
+          } else if (w8 > 1) {
+#pragma unroll
+            for (int r = 0; r < MAX_R; ++r)
+              if (r < R) red[t][r][jc] = lv[c][r];
+          }
+          if (total) lsum[t][jc] = ls[c];
         }
-        if (total) lsum[t][j] = ls;
       }
       __syncthreads();
       if (live && w8 > 1 && t % w8 == 0) {   // the first vreg of a slice
 #pragma unroll
-        for (int r = 0; r < MAX_R; ++r) {
-          if (r < R) {
-            A acc = red[t][r][j];
-            for (int u = 1; u < w8; ++u) acc = add_rn(acc, red[t + u][r][j]);
-            o[(out0 + (int64_t)(t / w8) * R + r) * LANES + j] = acc;
+        for (int c = 0; c < S::COLS; ++c) {
+          const int jc = j + c * TW;
+#pragma unroll
+          for (int r = 0; r < MAX_R; ++r) {
+            if (r < R) {
+              A acc = red[t][r][jc];
+              for (int u = 1; u < w8; ++u) acc = add_rn(acc, red[t + u][r][jc]);
+              o[(out0 + (int64_t)(t / w8) * R + r) * LANES + jc] = acc;
+            }
           }
         }
       }
@@ -431,17 +523,22 @@ resident_kernel(Params<A> p) {
         if (j == 0) p.tot[(int64_t)item[I_TOT] + t] = c0;
       }
       __syncthreads();
-      buf ^= 1;
+      buf = (buf + 1) % NS;
     }
-    if (it + 1 < p.iters && blockIdx.x < p.n_items)
-      stage_item(stage[buf], p.items, p.desc, blockIdx.x, t, j);
-    const bool res_lap = it == 0 && p.n_res_tasks > 0 && p.stamps;
+    if (it + 1 < p.iters) {
+#pragma unroll
+      for (int k = 0; k < NS - 1; ++k)
+        if (blockIdx.x + (int64_t)k * gridDim.x < p.n_items)
+          stage_item<V, S>(stage[(buf + k) % NS], p.items, p.desc,
+                           blockIdx.x + (int64_t)k * gridDim.x, t, j, policy);
+    }
+    const bool res_lap = CLOCK && it == 0 && p.n_res_tasks > 0;
     if (res_lap) {              // the clock times the residue on its own
       grid.sync();
       clock.lap(S_A);
     }
     if (it == 0)
-      residue_sums(p, row * (LANES / WARP) + j / WARP, rows * (LANES / WARP),
+      residue_sums(p, row * (TW / WARP) + j / WARP, rows * (TW / WARP),
                    j % WARP);
     grid.sync();
     clock.lap(res_lap ? S_R : S_A);
@@ -453,24 +550,27 @@ resident_kernel(Params<A> p) {
         const int32_t* wr = p.wide + r * NWIDE;
         const int n = wr[W_N];
         const int64_t step = (int64_t)wr[W_STEP] * LANES;
-        const A* c = p.cbuf + (int64_t)wr[W_FIRST] * LANES + j;
-        A acc = c[0];
-        for (int c0 = 1; c0 < n; c0 += COMBINE) {
-          // unconditional loads (clamped to the last chunk), so that all
-          // COMBINE are in flight before the first add
-          A v[COMBINE];
 #pragma unroll
-          for (int u = 0; u < COMBINE; ++u)
-            v[u] = c[min(c0 + u, n - 1) * step];
+        for (int cc = 0; cc < S::COLS; ++cc) {
+          const A* c = p.cbuf + (int64_t)wr[W_FIRST] * LANES + j + cc * TW;
+          A acc = c[0];
+          for (int c0 = 1; c0 < n; c0 += COMBINE) {
+            // unconditional loads (clamped to the last chunk), so that all
+            // COMBINE are in flight before the first add
+            A v[COMBINE];
 #pragma unroll
-          for (int u = 0; u < COMBINE; ++u) {
-            const A sum = add_rn(acc, v[u]);
-            acc = c0 + u < n ? sum : acc;
+            for (int u = 0; u < COMBINE; ++u)
+              v[u] = c[min(c0 + u, n - 1) * step];
+#pragma unroll
+            for (int u = 0; u < COMBINE; ++u) {
+              const A sum = add_rn(acc, v[u]);
+              acc = c0 + u < n ? sum : acc;
+            }
           }
+          p.y2[(int64_t)wr[W_Y2] * LANES + j + cc * TW] = acc;
         }
-        p.y2[(int64_t)wr[W_Y2] * LANES + j] = acc;
       }
-      const int64_t first = (tid + (int64_t)p.n_wide * LANES) % nthreads;
+      const int64_t first = (tid + (int64_t)p.n_wide * TW) % nthreads;
       for (int64_t i = first; i < (int64_t)p.n_long_rows * LANES;
            i += nthreads) {
         const int l = (int)(i % LANES);
@@ -490,26 +590,31 @@ resident_kernel(Params<A> p) {
     }
 
     // (D) outgather (adding the residue at the last step), then, but for
-    // the last step, the tap in 16-byte vectors, TAP_U of them in flight
-    // per thread (y2 row 0 is final; (A) has read x)
+    // the last step, the tap in 16-byte vectors; a thread of COLS lane
+    // columns keeps COLS times the slots and the tap's vectors in flight,
+    // so that a SM has as many loads in flight as at one column a thread
+    // (y2 row 0 is final; (A) has read x)
     const bool last = it + 1 == p.iters;
+    constexpr int OG_K = OG_CHUNK * S::COLS < OG_KMAX ? OG_CHUNK * S::COLS
+                                                      : OG_KMAX;
     for (int64_t b = tid / og_threads<A>(); b < p.B;
          b += nthreads / og_threads<A>())
-      outgather_block<A>(p.src, p.perm, p.y2, p.out, b, p.B, p.K, p.Z,
-                         (int)(tid % og_threads<A>()),
-                         last && p.n_res_tasks ? p.res_bptr : nullptr,
-                         p.res_bent, p.rsum);
+      outgather_block<A, OG_K>(p.src, p.perm, p.y2, p.out, b, p.B, p.K, p.Z,
+                               (int)(tid % og_threads<A>()),
+                               last && p.n_res_tasks ? p.res_bptr : nullptr,
+                               p.res_bent, p.rsum);
 
     if (!last) {
+      constexpr int TU = TAP_U * S::COLS;
       constexpr int VW = og_lanes<A>();
       const OgVec<A>* xv = reinterpret_cast<const OgVec<A>*>(x);
       const OgVec<A>* y0 = reinterpret_cast<const OgVec<A>*>(p.y2);
       OgVec<A>* xs = reinterpret_cast<OgVec<A>*>(p.x_scr);
       const int64_t n = p.x_words / VW;
-      for (int64_t i0 = tid; i0 < n; i0 += nthreads * TAP_U) {
-        OgVec<A> a[TAP_U], y[TAP_U];
+      for (int64_t i0 = tid; i0 < n; i0 += nthreads * TU) {
+        OgVec<A> a[TU], y[TU];
 #pragma unroll
-        for (int u = 0; u < TAP_U; ++u) {
+        for (int u = 0; u < TU; ++u) {
           const int64_t i = i0 + u * nthreads;
           if (i < n) {
             a[u] = xv[i];
@@ -517,7 +622,7 @@ resident_kernel(Params<A> p) {
           }
         }
 #pragma unroll
-        for (int u = 0; u < TAP_U; ++u) {
+        for (int u = 0; u < TU; ++u) {
           const int64_t i = i0 + u * nthreads;
           if (i < n) {
 #pragma unroll
@@ -529,7 +634,7 @@ resident_kernel(Params<A> p) {
       }
     }
     // the clock's last lap waits for every block
-    if (!last || p.stamps) grid.sync();
+    if (!last || CLOCK) grid.sync();
     clock.lap(S_D);
   }
   clock.write(p.per_sm);
@@ -537,7 +642,52 @@ resident_kernel(Params<A> p) {
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-template <typename V, typename A>
+// the dynamic shared memory of a block: its S::STAGES item stages
+template <typename V, class S>
+constexpr size_t stage_bytes() { return S::STAGES * sizeof(Stage<V>); }
+
+// the kernel of an instance, with the phase clock or without it
+template <typename V, typename A, class S>
+const void* kernel_of(bool clock) {
+  return clock ? (const void*)resident_kernel<V, A, S, true>
+               : (const void*)resident_kernel<V, A, S, false>;
+}
+
+// co-resident blocks a SM of kernel f at its launch shape, after allowing
+// it the dynamic shared memory it asks for
+template <typename V, class S>
+cudaError_t occupancy(const void* f, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)stage_bytes<V, S>());
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, f, S::THREADS, stage_bytes<V, S>());
+}
+
+// what the build gave an instance's kernel without the clock (the one
+// every call without `stamps` launches): registers a thread, local (stack
+// and spill) bytes a thread, static shared bytes a block, the dynamic
+// shared bytes its launch asks for, co-resident blocks a SM at that size,
+// and threads a block
+template <typename V, typename A, class S>
+int info(int* out) {
+  const void* f = kernel_of<V, A, S>(false);
+  cudaFuncAttributes a;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e == cudaSuccess) e = occupancy<V, S>(f, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)stage_bytes<V, S>();
+  out[4] = per_sm;
+  out[5] = S::THREADS;
+  return 0;
+}
+
+template <typename V, typename A, class S>
 int launch(const void* desc, const void* items, int n_items,
            const void* wide, int n_wide, void* cbuf, const void* inc_ptr,
            const void* inc_tot, const void* inc_mult, int n_long,
@@ -591,14 +741,9 @@ int launch(const void* desc, const void* items, int n_items,
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t dyn = 2 * sizeof(Stage<V>);     // the two item stages
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(resident_kernel<V, A>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dyn);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_kernel<V, A>, LANES * VPB, dyn);
+  const size_t dyn = stage_bytes<V, S>();
+  const void* f = kernel_of<V, A, S>(stamps != nullptr);
+  if (e == cudaSuccess) e = occupancy<V, S>(f, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -606,24 +751,27 @@ int launch(const void* desc, const void* items, int n_items,
   // as many blocks as are co-resident, or as the largest phase has work
   int64_t need = n_items;
   need = std::max(need, cdiv(n_wide, VPB));
-  need = std::max(need, cdiv((int64_t)B * og_threads<A>(),
-                              (int64_t)VPB * LANES));
-  if (iters > 1) need = std::max(need, cdiv(x_words, (int64_t)VPB * LANES));
-  need = std::max(need, cdiv(n_long_rows, VPB));
-  need = std::max(need, cdiv(n_res_tasks, VPB * LANES / WARP));
+  need = std::max(need, cdiv((int64_t)B * og_threads<A>(), S::THREADS));
+  if (iters > 1) need = std::max(need, cdiv(x_words, S::THREADS));
+  need = std::max(need, cdiv((int64_t)n_long_rows * LANES, S::THREADS));
+  need = std::max(need, cdiv(n_res_tasks, S::THREADS / WARP));
   const int grid = (int)std::max<int64_t>(
       1, std::min<int64_t>(need, (int64_t)per_sm * sms));
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)resident_kernel<V, A>,
-                                  dim3(grid), dim3(LANES, VPB), args, dyn,
+  e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(S::TW, VPB), args, dyn,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// the shapes the library's instances launch at, each the fastest that
+// probes/k6_levers.py measured for its value type (the header note)
+using ShapeF32 = Shape<1, 2, 2, true>;     // f32 and bf16 values
+using ShapeF64 = Shape<2, 2, 2, true>;
+
 }  // namespace
 
-#define DASP_RESIDENT(NAME, V, A)                                            \
+#define DASP_RESIDENT(NAME, V, A, S)                                         \
   extern "C" int NAME(                                                       \
       const void* desc, const void* items, int n_items, const void* wide,    \
       int n_wide, void* cbuf, const void* inc_ptr, const void* inc_tot,      \
@@ -634,13 +782,25 @@ int launch(const void* desc, const void* items, int n_items,
       const void* res_cols, const void* res_vals, void* rsum,                \
       const void* res_bptr, const void* res_bent, int iters, double tap,     \
       void* stamps, void* stream) {                                          \
-    return launch<V, A>(desc, items, n_items, wide, n_wide, cbuf, inc_ptr,   \
-                        inc_tot, inc_mult, n_long, n_long_rows, src, perm,   \
-                        B, K, Z, x, x_scr, x_words, y2, tot, out, res_ent,   \
-                        res_task, n_res_tasks, res_cols, res_vals, rsum,     \
-                        res_bptr, res_bent, iters, tap, stamps, stream);     \
+    return launch<V, A, S>(desc, items, n_items, wide, n_wide, cbuf,         \
+                           inc_ptr, inc_tot, inc_mult, n_long, n_long_rows,  \
+                           src, perm, B, K, Z, x, x_scr, x_words, y2, tot,   \
+                           out, res_ent, res_task, n_res_tasks, res_cols,    \
+                           res_vals, rsum, res_bptr, res_bent, iters, tap,   \
+                           stamps, stream);                                  \
   }
 
-DASP_RESIDENT(dasp_resident_f32, float, float)
-DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float)
-DASP_RESIDENT(dasp_resident_f64, double, double)
+DASP_RESIDENT(dasp_resident_f32, float, float, ShapeF32)
+DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float, ShapeF32)
+DASP_RESIDENT(dasp_resident_f64, double, double, ShapeF64)
+
+// K6's build figures (info above) for value type dtype: 0 f32, 1 bf16,
+// 2 f64; int[6] out
+extern "C" int dasp_resident_info(int dtype, int* out) {
+  switch (dtype) {
+    case 0: return info<float, float, ShapeF32>(out);
+    case 1: return info<__nv_bfloat16, float, ShapeF32>(out);
+    case 2: return info<double, double, ShapeF64>(out);
+  }
+  return (int)cudaErrorInvalidValue;
+}

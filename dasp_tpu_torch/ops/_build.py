@@ -71,6 +71,8 @@ SIGNATURES = {
     "dasp_resident_f32": _RESIDENT,
     "dasp_resident_bf16": _RESIDENT,
     "dasp_resident_f64": _RESIDENT,
+    # value type (0 f32, 1 bf16, 2 f64), int[6] out
+    "dasp_resident_info": (_I, _P),
     # T4: vals, idx, x (64,128), out, nv, iters, stream
     "dasp_resident_probe": _PROBE,
     # T1: idx, xw (2048,128), out, rows, body, stream

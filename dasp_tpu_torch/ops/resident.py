@@ -86,6 +86,7 @@ tensor to the kernel; there is no fallback from one to the other.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List
 
 import numpy as np
@@ -507,6 +508,26 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
                          f"{stamps.device} (x on {x2d.device})")
     if x2d.device.type == "cpu":
         return resident_loop_plain(meta, arrays, x2d, iters)
+    entry = f"dasp_resident_{name}"
+    y2, out = launch_entry(getattr(_build.library(), entry), entry, meta,
+                           arrays, x2d, iters, stamps)
+    resident_loop.launches[name] += 1
+    if scratch is not None:
+        scratch.update(y2=y2, out=out)
+    return _finish(meta, out)
+
+
+resident_loop.launches = {"f32": 0, "bf16": 0, "f64": 0}
+
+
+def launch_entry(fn, entry: str, meta, arrays: Dict, x2d: torch.Tensor,
+                 iters: int, stamps: torch.Tensor = None):
+    """Allocate K6's buffers on x2d's device and launch the C entry point
+    ``fn`` (named ``entry``, with ``_build.SIGNATURES["dasp_resident_f32"]``'s
+    arguments) on a call ``resident_loop`` has checked; return the last
+    step's y2 and out.  Raises if the launch is refused.  It counts no
+    launch: ``resident_loop`` does, and probes/k6_levers.py launches its
+    own builds of the kernel through it."""
     res = arrays["resident"]
     dev, dt = x2d.device, x2d.dtype
     x_scr = torch.empty_like(x2d) if iters > 1 else None   # the taps' x
@@ -516,8 +537,7 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
                        device=dev)
     tot = torch.empty(max(res["n_tot"], 1), dtype=dt, device=dev)
     out = torch.empty((meta.B_pad, LANES), dtype=dt, device=dev)
-    entry = f"dasp_resident_{name}"
-    rc = getattr(_build.library(), entry)(
+    rc = fn(
         res["desc"].data_ptr(), res["items"].data_ptr(),
         res["items"].shape[0], res["wide"].data_ptr(), res["wide"].shape[0],
         cbuf.data_ptr(), res["inc_ptr"].data_ptr(),
@@ -534,13 +554,31 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
         float(cb.TAP), None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
-    resident_loop.launches[name] += 1
-    if scratch is not None:
-        scratch.update(y2=y2, out=out)
-    return _finish(meta, out)
+    return y2, out
 
 
-resident_loop.launches = {"f32": 0, "bf16": 0, "f64": 0}
+# what csrc/resident.cu's dasp_resident_info reports of an instance
+INFO_FIELDS = ("registers", "local_bytes", "static_shared_bytes",
+               "dynamic_shared_bytes", "blocks_per_sm", "threads")
+
+
+def kernel_info(name: str) -> dict:
+    """What the build gave K6's instance ``name`` ("f32", "bf16", "f64"):
+    registers and local (stack and spill) bytes a thread, static shared
+    bytes a block, the dynamic shared bytes its launch asks for,
+    co-resident blocks a SM at that size, and threads a block
+    (``INFO_FIELDS``).  Builds the library: needs the card."""
+    if name not in resident_loop.launches:
+        raise ValueError(f"kernel_info: no K6 instance {name!r} (one of "
+                         f"{tuple(resident_loop.launches)})")
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_info: K6's build figures need a CUDA "
+                           "card (torch.cuda.is_available() is False)")
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    _build.check(_build.library().dasp_resident_info(
+        tuple(resident_loop.launches).index(name), ctypes.addressof(out)),
+        "dasp_resident_info")
+    return dict(zip(INFO_FIELDS, out))
 
 
 def resident_loop_plain(meta, arrays: Dict, x2d: torch.Tensor,

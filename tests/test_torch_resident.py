@@ -31,6 +31,7 @@ TPU's VMEM budget and tiers the port does not have.
 import functools
 import inspect
 import operator
+import os
 
 import numpy as np
 import pytest
@@ -42,7 +43,7 @@ from dasp_tpu.sparse import CSRMatrix as RefCSR
 import dasp_tpu_torch as dt
 from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.config import DaspConfig
-from dasp_tpu_torch.ops import cuda_backend as cb
+from dasp_tpu_torch.ops import _build, cuda_backend as cb
 from dasp_tpu_torch.ops import resident
 from dasp_tpu_torch.ops.colsum import colsum_plain
 from dasp_tpu_torch.ops.cuda_backend import TorchSpMV
@@ -345,6 +346,74 @@ def test_resident_loop_refuses_bad_calls():
                              (x2d.to("meta"), 1, "unsupported device")):
         with pytest.raises(ValueError, match=what):
             resident.resident_loop(meta, arrays, bad, iters)
+
+
+def test_kernel_info_refuses_without_cuda(monkeypatch):
+    """resident.kernel_info reads K6's figures from the CUDA build: with
+    no card it raises a RuntimeError that says so before the library is
+    built or loaded (no nvcc search, no ctypes call); an instance that
+    does not exist raises ValueError."""
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "library", no_library)
+    for name in resident.resident_loop.launches:
+        with pytest.raises(RuntimeError, match="need a CUDA card"):
+            resident.kernel_info(name)
+    with pytest.raises(ValueError, match="no K6 instance 'f16'"):
+        resident.kernel_info("f16")
+    assert "dasp_resident_info" in _build.SIGNATURES
+
+
+def test_k6_levers_shapes_are_launchable():
+    """probes/k6_levers.py builds k6_levers.cu once per shape: each sets
+    every switch the source reads; each gives a thread row more threads
+    than a vreg has windows (it copies the wins row a word a thread) and
+    fits its item stages and static arrays in a block's 227 KB of shared
+    memory; shape (0), one column a thread, comes first and the shapes
+    resident.cu ships are among them; ptxas's figures are read for the
+    kernel of the variant's shape and value type alone."""
+    import re
+    from dasp_tpu_torch.probes import k6_levers
+    src = open(k6_levers.SOURCE).read()
+    assert re.findall(r"#ifndef (K6_\w+)\n", src) == list(k6_levers._FLAGS)
+    stage = -(-(resident.VPB * SUB * 128 * (2 + 8)
+                + resident.VPB * (resident.MAX_P + 1) * 4
+                + len(resident.ITEM_FIELDS) * 4) // 16) * 16
+    static = resident.VPB * (4 + 1) * 128 * 8     # red and lsum, f64
+    for name, (cols, minb, stages, ef) in k6_levers.VARIANTS.items():
+        assert 128 % cols == 0 and 128 // cols > resident.MAX_P, name
+        assert minb >= 1 and stages >= 2 and ef in (0, 1), name
+        assert stages * stage + static <= 232_448, name
+    assert list(k6_levers.VARIANTS.values())[0] == (1, 2, 2, 0)
+    with open(os.path.join(_build.SRC_DIR, "resident.cu")) as fh:
+        shipped = re.findall(r"using ShapeF(?:32|64) = Shape<(\d), (\d), "
+                             r"(\d), (true|false)>", fh.read())
+    assert len(shipped) == 2
+    for *shape, ef in shipped:
+        assert (*map(int, shape), int(ef == "true")) in \
+            k6_levers.VARIANTS.values()
+    kernel = ("_ZN12_GLOBAL__N_115resident_kernelI{}NS_5ShapeILi{}ELi2ELi2"
+              "ELb0EEELb{}EEvNS_6ParamsIT0_EE")
+    text = "\n".join(
+        f"ptxas info    : Compiling entry function "
+        f"'{kernel.format(v, c, k)}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {kernel.format(v, c, k)}\n"
+        f"    {s} bytes stack frame, {s} bytes spill stores, {s} bytes "
+        f"spill loads\nptxas info    : Used {r} registers, used 1 barriers"
+        for v, c, s, r in (("ff", 1, 8, 64), ("13__nv_bfloat16f", 1, 16, 64),
+                           ("dd", 1, 184, 64), ("dd", 2, 0, 126))
+        for k, s, r in ((1, s + 8, r), (0, s, r)))   # clocked twin first
+    assert k6_levers.ptxas_figures(text, (2, 2, 2, 0), "f64") == \
+        "stack 0, spill st 0, spill ld 0, registers 126"
+    assert k6_levers.ptxas_figures(text, (1, 2, 2, 0), "f64") == \
+        "stack 184, spill st 184, spill ld 184, registers 64"
+    assert k6_levers.ptxas_figures(text, (1, 2, 2, 0), "f32") == \
+        "stack 8, spill st 8, spill ld 8, registers 64"
+    assert k6_levers.ptxas_figures(text, (1, 2, 2, 0), "bf16") == \
+        "stack 16, spill st 16, spill ld 16, registers 64"
+    assert k6_levers.ptxas_figures(text, (1, 1, 3, 0), "f64") == \
+        "not found"
 
 
 def test_entry_points_default_to_cuda():
