@@ -7,7 +7,8 @@ Phases, one or more printed lines each, every one raising on failure:
      and the device-memory copy rate (the roofline for the kernels);
   2. build: compiles the CUDA kernels (the colsum of colsum_multi.cu: K5,
      and at kv = 1 K1 and its fp64 instance K3; outgather K2 and its fp64
-     instance K4, the resident executor K6, the L2 probe T4, and the
+     instance K4, the resident executor K6 and its SpMM pass over kv = 2,
+     4, 8 x tables, the L2 probe T4, and the
      probes T1 (gather_probe.cu), T2 and T3 (colsum_probe.cu)) from
      dasp_tpu_torch/csrc with nvcc into one library in
      dasp_tpu_torch/_build, and the packer's native host library
@@ -19,33 +20,39 @@ Phases, one or more printed lines each, every one raising on failure:
      the same tensors (K1/K3 bit for bit), each K5 slice against K1 / K3
      on its own x, each vector of the batched outgather against
      outgather_plain on its y2, and K6 in f32, bf16 and f64 at 1 and 3
-     steps, all bit for bit; the registers, local bytes, shared bytes and
+     steps, and K6's SpMM pass at kv = 2, 4, 8 (y and y2 against its
+     plain version, each column against one K6 step on its table), all
+     bit for bit; the registers, local bytes, shared bytes and
      blocks a SM of every K5 instance (the kv = 1 ones again on a [build]
      K1 line: they are K1/K3), of the T1 bodies and of the T2/T3
      instances phase 6 launches are printed after the build, and K6's
-     three instances on a [build] K6 line (registers, local bytes, static
-     and dynamic shared bytes, blocks a SM, threads a block; the fp64
-     instance must use no local memory);
+     instances on a [build] K6 line (registers, local bytes, static
+     and dynamic shared bytes, blocks a SM, threads a block; at one x
+     table and at kv = 2, 4, 8; the fp64 one-table instance must use no
+     local memory);
   4. the SpMV end to end at published SuiteSparse sizes (cop20k_like,
      webbase_like from bench/suite.py), one pack per matrix serving all
      dtypes: SpMVOperator on the card in f32, f64 and bf16 (each call
      exactly one K6 launch at one step, the residue inside it, and
      nothing else of the port's kernels; its y and y2 equal bit for bit to
-     their plain versions), and matmat with 8 columns in f32, bf16 and
-     f64, on operators built with force_streamed=True (the streamed
-     path), and the resident timing loop (K6, a chain of 10) of a default
-     operator, each against the f64 CSR golden (for bf16 that of the
-     bf16-rounded A and x), scaled by the backward-error mass
+     their plain versions), and matmat with 8, 4 and 2 columns in f32,
+     bf16 and f64, on operators built with force_streamed=True (the
+     streamed path), and the resident timing loop (K6, a chain of 10) of
+     a default operator, each against the f64 CSR golden (for bf16 that
+     of the bf16-rounded A and x), scaled by the backward-error mass
      max(|A||x|, 1), and the resident y against the streamed y; every
-     kernel instance of the path must launch in this phase and K1/K3 not
-     at all, and one matmat call must launch K5 once per stream and pass
-     (the residue sub-plan's streams included, checked on a fixture whose
-     residue is repacked) and K1/K3 not at all; then every instance
-     against its plain version at these shapes (K5 at kv = 4 and 8); then,
-     on counts of their own, K1/K3 and K2/K4 on the reference-order
-     single-vector path (the same tables without the K6 schedule, where
-     they still run), exactly one K1/K3 a stream and one K2/K4 a plan a
-     call;
+     kernel instance of the path (K6 at one table and at kv = 2, 4, 8)
+     must launch in this phase and K1/K3, K5 and K2/K4 not at all, and
+     one matmat call must launch exactly one K6 SpMM pass a pass and
+     nothing else (checked also on a fixture whose residue is repacked as
+     a sub-plan, which the pass sums by its trees); then every instance
+     against its plain version at these shapes (K5 at kv = 4 and 8, the
+     SpMM pass at kv = 8); then, on counts of their own, K1/K3, K5 and
+     K2/K4 on the glue path (the same tables without the K6 schedule,
+     where they still run): the reference-order single-vector SpMV,
+     exactly one K1/K3 a stream and one K2/K4 a plan a call, and an SpMM
+     pass of 8, exactly one K5 a stream and one K2/K4 a plan, the residue
+     sub-plan's included;
   5. timing with CUDA events (median of trials), each step issued eagerly
      and as a CUDA-graph replay: chained SpMV loops (TorchSpMV.timing_loop
      on the streamed operators: every step adds y[0]*1e-36 into x) in f32,
@@ -56,10 +63,12 @@ Phases, one or more printed lines each, every one raising on failure:
      chain of 100 (a [phase] line per arm and dtype: phases A, C and
      D+tap per step, their sum against the graphed step, the grid
      barriers a step, the grid and blocks per SM); matmat at 8 columns
-     (two K5 passes of 4, and one pass of 8) against 8 single SpMVs and
-     cuSPARSE A @ X, per call and per column, in f32, f64 and bf16, with
-     the device kernels one pass and one SpMV launch (the port's and the
-     glue's, from the profiler) and the device kernels of a streamed SpMV
+     (one K6 SpMM pass of 8; on the glue path two K5 passes of 4 and one
+     pass of 8) against 8 single SpMVs and cuSPARSE A @ X, per call and
+     per column, in f32, f64 and bf16, with the device kernels of one
+     pass (K6's and the glue's) and of one SpMV (the port's and the
+     others, from the profiler), the K6 pass's phase clock at kv = 8 (a
+     [phase] line), and the device kernels of a streamed SpMV
      (one K6 step, the chain's tap ops, bf16's rounding); the one-step
      K6's phase clock (A, the residue's sums R, C, D) and the single-
      vector SpMV eager and graphed beside the resident step and cuSPARSE;
@@ -96,7 +105,9 @@ Phases, one or more printed lines each, every one raising on failure:
      chain's step ([time] rmat_like ... one device_call); K1/K3 on its
      streams, which exceed the L2 in every dtype, are held to
      colsum_plain bit for bit and timed alone, with their share of the
-     bound.
+     bound; K6's SpMM pass of 8 on scircuit_like, rmat_like and the wide
+     matrix gets its phase clock and its time beside cuSPARSE A @ X (a
+     [phase] line each).
      Every arm passes the bench's checks (streamed y, resident loop y,
      each matmat column and cuSPARSE against the f64 CSR golden), writes
      its resident, streamed and SpMM rows under the reference's header,
@@ -180,6 +191,11 @@ K_COLS = 8              # matmat columns
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 67e12, "f64": 34e12}
 
+def inst(base, dtype):
+    """Name of a kernel instance: the f32 one bears the bare name."""
+    return base if dtype == "f32" else f"{base}_{dtype}"
+
+
 # kernel instance -> (source, the TPU kernel it replaces); the K6
 # instances run as TorchSpMV.timing_loop of a resident operator
 OPS = "dasp_tpu/ops"
@@ -196,6 +212,11 @@ INSTANCES = {
     "resident": ("resident.cu", f"{OPS}/resident.py:452"),
     "resident_bf16": ("resident.cu", f"{OPS}/resident.py:452"),
     "resident_f64": ("resident.cu", f"{OPS}/resident.py:452"),
+    # K6's SpMM pass over kv x tables: the reference's SpMM runs K5 (:174)
+    # and K2/K4 for it, K6 (resident.py:452) is the kernel it extends
+    **{inst("resident", d) + f"_kv{kv}": ("resident.cu",
+                                          f"{OPS}/resident.py:452")
+       for d in ("f32", "bf16", "f64") for kv in (2, 4, 8)},
     "resident_probe": ("resident_probe.cu", "tools/resident_probe.py:27"),
     "gather_bench": ("gather_probe.cu", "tools/gather_bench.py:46"),
     "roundcost_ab": ("colsum_probe.cu", "tools/roundcost_ab.py:40"),
@@ -204,11 +225,14 @@ INSTANCES = {
 # T1-T4 are probes, not on the SpMV path: their launches are counted over
 # their own sweeps (phase 6), every other instance's over phase 4
 PROBES = ("resident_probe", "gather_bench", "roundcost_ab", "stream_bench2")
-# K1/K3 run only on the reference-order single-vector path (tables
-# without a K6 schedule): on no user path of a plan with a stream
-REFERENCE_ORDER = ("colsum", "colsum_bf16", "colsum_f64")
-MAIN_PATH = tuple(k for k in INSTANCES
-                  if k not in PROBES + REFERENCE_ORDER)
+# K1/K3, K5 and K2/K4 run only on the glue path (tables without a K6
+# schedule: the reference-order single-vector SpMV and the glue's SpMM
+# pass): on no user path of a plan with a stream
+GLUE_PATH = ("colsum", "colsum_bf16", "colsum_f64", "colsum_multi",
+             "colsum_multi_bf16", "colsum_multi_f64", "outgather",
+             "outgather_f64")
+MAIN_PATH = tuple(k for k in INSTANCES if k not in PROBES + GLUE_PATH)
+SPMM_KV = (2, 4, 8)     # x tables of K6's SpMM pass instances
 PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
 MC_CHIPS = 4            # chips of the multi-chip phase, all on the one card
 PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
@@ -217,11 +241,6 @@ L2_BYTES = 50e6         # the H100's L2 (NVIDIA's data sheet)
 
 def log(msg):
     print(msg, flush=True)
-
-
-def inst(base, dtype):
-    """Name of a kernel instance: the f32 one bears the bare name."""
-    return base if dtype == "f32" else f"{base}_{dtype}"
 
 
 def scaled_err(a, b):
@@ -432,16 +451,17 @@ def colsum_alone(name, op, x2d, card, flops):
         f"[{card}]")
 
 
-def resident_bytes(op):
-    """(bytes one K6 step moves, bytes one K6 call must move).  A step
+def resident_bytes(op, kv=1):
+    """(bytes one K6 step moves, bytes one K6 call on kv x tables must
+    move; kv > 1 is an SpMM pass, its tables read once).  A step
     reads the wins row, vals and idx of every vreg its schedule holds,
     the kernel's tables (schedule, wide rows, incidence, descriptors), src
     and the used slots' perm rows; writes the sell and long rows of y2 and
     the chunk rows and reads each back once; writes out; and reads the x
     table for its gathers, then reads it and writes x_scr in the tap (all
     but the last step of a chain).  A call reads each input once (those
-    tables, the residue's and x) and writes out once, whatever its number
-    of steps."""
+    tables, the residue's and each x table) and writes each out once,
+    whatever its number of steps."""
     import numpy as np
     nb = lambda t: t.numel() * t.element_size()
     meta, arrays = op._meta, op._arrays
@@ -462,7 +482,7 @@ def resident_bytes(op):
     x = meta.s_rows * 128 * el
     out = meta.B_pad * 128 * el
     y2 = (meta.n_y2_rows + res["chunk_rows"]) * 128 * el
-    return int(tables + 3 * x + 2 * y2 + out), int(tables + x + out)
+    return int(tables + 3 * x + 2 * y2 + out), int(tables + kv * (x + out))
 
 
 def compare_resident(op, x2d, steps=(1, 3)):
@@ -529,6 +549,41 @@ def one_step_lines(name, op, x, card):
     return us
 
 
+def compare_spmm(op, tabs):
+    """K6's SpMM pass on the kv = len(tabs) x tables ``tabs`` against its
+    plain version on the same card tensors: y and the kernel's y2 bit for
+    bit (y2 against y2_plain on the stacked tables), and each column
+    against one K6 step on its table, bit for bit; the pass must launch
+    exactly one instance, of its kv.  Returns the worst (scaled, abs)
+    error against the plain version."""
+    import torch
+    from dasp_tpu_torch.ops.resident import resident_loop, spmm_loop, \
+        spmm_loop_plain, y2_plain
+    meta, arrays = op._meta, op._arrays
+    kv, x3d = len(tabs), multi_x(tabs)
+    key = f"{inst('resident', op.dtype)}_kv{kv}"
+    scratch, out = {}, []
+    moved = launched(lambda: out.append(spmm_loop(meta, arrays, x3d, kv,
+                                                  scratch=scratch)))
+    if moved != {key: 1}:
+        raise AssertionError(f"one {op.dtype} pass of {kv} launched "
+                             f"{moved}, expected one {key}")
+    y = out[0]
+    want = spmm_loop_plain(meta, arrays, x3d, kv)
+    y2 = y2_plain(meta, arrays, x3d.view(kv, meta.s_rows, 128))
+    e = scaled_err(y, want)
+    if not (y.dtype == want.dtype and torch.equal(y, want)
+            and torch.equal(scratch["y2"], y2)):
+        raise AssertionError(f"{key} differs from its plain version: y {e}, "
+                             f"y2 {scaled_err(scratch['y2'], y2)} (scaled, "
+                             f"abs)")
+    for j, x in enumerate(tabs):
+        if not torch.equal(y[j], resident_loop(meta, arrays, x, 1)):
+            raise AssertionError(f"{key} column {j} differs from one K6 "
+                                 f"step on its table")
+    return e
+
+
 def launched(step):
     """{instance: launches} that one call of ``step`` adds."""
     from dasp_tpu_torch.ops import kernel_launches as read_counts
@@ -548,6 +603,48 @@ def phase_split(op, x2d, n):
     resident_loop(op._meta, op._arrays, x2d, n, stamps=stamps)
     torch.cuda.synchronize()
     return dict(zip(STAMPS, stamps.tolist()))
+
+
+def spmm_phase_split(op, x3d, kv):
+    """K6's phase clock over one SpMM pass of kv x tables: {word:
+    value}."""
+    import torch
+    from dasp_tpu_torch.ops.resident import STAMP_WORDS, STAMPS, spmm_loop
+    stamps = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=x3d.device)
+    spmm_loop(op._meta, op._arrays, x3d, kv, stamps=stamps)
+    torch.cuda.synchronize()
+    return dict(zip(STAMPS, stamps.tolist()))
+
+
+def pass_phase_lines(dev, name, csr, plan, dtypes, card):
+    """K6's SpMM pass of K_COLS columns on one of phase 7's matrices: its
+    phase clock, its graphed time and cuSPARSE A @ X's on the same
+    columns, a [phase] line a dtype."""
+    import numpy as np
+    import torch
+    import dasp_tpu_torch as dt
+    from dasp_tpu_torch.bench.baselines import cusparse_matrix
+    from dasp_tpu_torch.ops import cuda_backend as cb
+    X = np.random.default_rng(2).standard_normal((csr.n_cols, K_COLS))
+    for d in dtypes:
+        op = dt.SpMVOperator(plan, dtype=d, device=dev)
+        x3d = multi_x([op._prep_x(X[:, j]) for j in range(K_COLS)])
+        ph = spmm_phase_split(op, x3d, K_COLS)
+        us = {k: ph[k] / 1e3 for k in ("A", "R", "C", "D")}
+        g = time_ms(graphed(lambda: cb.spmm_fn(op._meta, op._arrays, x3d,
+                                               K_COLS)), 5)
+        lib = "none (bf16)"
+        if d != "bf16":
+            A, vdt = cusparse_matrix(csr, d, dev)
+            Xd = torch.from_numpy(X).to(vdt).to(dev)
+            lib = f"{time_ms(graphed(lambda: A @ Xd), 5) * 1e3:.2f} us"
+            del A, Xd
+        log(f"[phase] {name} {d} K6 SpMM pass of {K_COLS} (the clock's own "
+            f"barrier before R): A {us['A']:.2f} us, residue sums R "
+            f"{us['R']:.2f}, C {us['C']:.2f}, D {us['D']:.2f}; sum "
+            f"{sum(us.values()):.2f} us; graphed pass {g * 1e3:.2f} us, "
+            f"cuSPARSE A @ X {lib}; grid {ph['grid']} [{card}]")
+        del op, x3d
 
 
 def multi_x(tabs):
@@ -600,6 +697,46 @@ def k5_split(op, tabs, name, card):
     return us
 
 
+def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
+    """K6's SpMM pass at kv = 2, 4, 8 on the first kv of ``tabs``:
+    ALONE_REPS passes in one graph, its plain version, the bytes a pass
+    must move (A's tables once, each x table and each output once) and
+    its bound, and one cuSPARSE A @ X of the same columns; a [time] line
+    each, and each instance's row of the kernels line in ``alone``."""
+    import torch
+    from dasp_tpu_torch.bench.baselines import cusparse_matrix
+    from dasp_tpu_torch.ops.resident import spmm_loop, spmm_loop_plain
+    meta, arrays, d = op._meta, op._arrays, op.dtype
+    A = None
+    if d != "bf16":
+        A, vdt = cusparse_matrix(csr, d, tabs[0].device)
+    for kv in SPMM_KV:
+        x3d = multi_x(tabs[:kv])
+        ms = time_ms(graphed(lambda: spmm_loop(meta, arrays, x3d, kv),
+                             ALONE_REPS), 5) / ALONE_REPS
+        plain = time_ms(lambda: spmm_loop_plain(meta, arrays, x3d, kv), 2)
+        lib = None
+        if A is not None:
+            Xd = torch.randn((csr.n_cols, kv), dtype=vdt,
+                             device=x3d.device)
+            lib = time_ms(graphed(lambda: A @ Xd, ALONE_REPS),
+                          5) / ALONE_REPS
+        nbytes = resident_bytes(op, kv)[1]
+        b_ms, b_by = bound(nbytes, kv * 2 * csr.nnz, d)
+        k = f"{inst('resident', d)}_kv{kv}"
+        alone[k] = (ms, plain, b_ms, b_by, lib)
+        log(f"[time] {k} alone at {csr.n_rows}x{csr.n_cols} (graph replay, "
+            f"{ALONE_REPS} passes a graph): a pass of {kv} {ms * 1e3:.2f} us "
+            f"({ms * 1e3 / kv:.2f} a column), plain {plain * 1e3:.1f} us; "
+            f"cuSPARSE A @ X[:, :{kv}] "
+            + (f"{lib * 1e3:.2f} us" if lib else "none (bf16)")
+            + f"; must move {nbytes / 1e6:.2f} MB = "
+            f"{nbytes / (ms * 1e6):.0f} GB/s, "
+            f"{nbytes / (ms * 1e6) / copy_gbs:.1%} of the copy rate; bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
+            f"{b_ms / ms:.3f} of it; {l2_fit(nbytes)} [{card}]")
+
+
 def kernel_counts(step):
     """Device kernels one call of ``step`` launches, by the profiler:
     (the port's own kernels, every other kernel: the glue's)."""
@@ -616,7 +753,8 @@ def kernel_counts(step):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         if us > 0 and not e.key.startswith("aten::"):
-            if any(k in e.key for k in ("colsum", "outgather", "resident")):
+            if any(k in e.key for k in ("colsum", "outgather", "resident",
+                                        "spmm_kernel")):
                 own += e.count
             else:
                 glue += e.count
@@ -1263,11 +1401,13 @@ def main():
             f"{i['blocks_per_sm']}"
             for name in colsum.launches for s in (2, 4, 8)
             for i in [kernel_info(name, s, 1)]))
-    k6_info = {d: resident_info(d) for d in resident_loop.launches}
+    k6_info = {(d, kv): resident_info(d, kv) for d in resident_loop.launches
+               for kv in (1,) + SPMM_KV}
     log(f"[build] K6 resident.cu {' / '.join(INFO_FIELDS)}: " + "; ".join(
-        f"dasp_resident_{d}: " + " / ".join(str(i[k]) for k in INFO_FIELDS)
-        for d, i in k6_info.items()))
-    if k6_info["f64"]["local_bytes"]:
+        f"dasp_resident_{d}{'' if kv == 1 else f'_kv{kv}'}: "
+        + " / ".join(str(i[k]) for k in INFO_FIELDS)
+        for (d, kv), i in k6_info.items()))
+    if k6_info["f64", 1]["local_bytes"]:
         raise AssertionError("dasp_resident_f64 uses local memory (stack "
                              "or spills): its shape is designed for none")
     # the probes' instances as phase 6 launches them
@@ -1327,9 +1467,14 @@ def main():
             raise AssertionError(f"entry fixture {d} is not resident")
         e = compare_resident(op, rand_tables(op, 4)[0])
         note({inst("resident", d): e})
+        for kv in SPMM_KV:
+            note({f"{inst('resident', d)}_kv{kv}":
+                  compare_spmm(op, rand_tables(op, 6, kv))})
         log(f"[kernels] entry fixture {d}: K6 == its plain version bit for "
             f"bit at 1 and 3 steps ({e[1]:.3e} abs), n_long="
-            f"{op._meta.n_long} residue={op._meta.overflow_meta}")
+            f"{op._meta.n_long} residue={op._meta.overflow_meta}; K6's "
+            f"SpMM pass at kv = {list(SPMM_KV)}: y and y2 == its plain "
+            f"version, each column == one K6 step, bit for bit")
         log(f"[kernels] entry fixture {csr.n_rows}x{csr.n_cols} "
             f"nnz={csr.nnz} {d} streams={list(op._meta.streams)} "
             f"k_used={op._meta.k_used}: " + ", ".join(
@@ -1359,19 +1504,41 @@ def main():
         return e
 
     def matmat_counted(op, X):
-        """(op.matmat(X), K5 launches, K1/K3 launches of that call): one
-        K5 launch per stream, of the plan and of its residue sub-plans,
-        for each pass of KV_SPMM columns, and no single-vector colsum."""
-        d = op.dtype
-        n5, n1 = colsum_multi.launches[d], colsum.launches[d]
-        Y = op.matmat(X)
-        n5, n1 = colsum_multi.launches[d] - n5, colsum.launches[d] - n1
-        passes = -(-X.shape[1] // cb.KV_SPMM)
-        if (n5, n1) != (passes * n_streams(op._meta), 0):
-            raise AssertionError(
-                f"matmat {d}: {n5} K5 and {n1} K1/K3 launches, expected "
-                f"{passes} x {n_streams(op._meta)} and 0")
-        return Y, n5, n1
+        """(op.matmat(X), the launches of that call): exactly one K6 SpMM
+        pass a pass of up to KV_SPMM columns, at the pass's kv (one K6
+        step for a pass of one column), and no other kernel: no K5, K1/K3
+        or K2/K4, the residue's sub-plans included."""
+        d, k = op.dtype, X.shape[1]
+        want = {}
+        for c0 in range(0, k, cb.KV_SPMM):
+            kv = min(s for s in KV_SIZES if s >= min(k - c0, cb.KV_SPMM))
+            key = inst("resident", d) + (f"_kv{kv}" if kv > 1 else "")
+            want[key] = want.get(key, 0) + 1
+        out = []
+        moved = launched(lambda: out.append(op.matmat(X)))
+        if moved != want:
+            raise AssertionError(f"matmat {d} of {k} columns launched "
+                                 f"{moved}, expected {want}")
+        return out[0], moved
+
+    def glue_pass_counted(op, X):
+        """The glue's SpMM pass (spmm_fn on op's tables without their K6
+        schedule) on the columns of X: (Y in original order, launches),
+        exactly one K5 a stream and one K2/K4 a plan, the residue
+        sub-plans' included."""
+        d, meta = op.dtype, op._meta
+        glue = dict(op._arrays, resident=None)
+        x3d = multi_x([op._prep_x(X[:, j]) for j in range(X.shape[1])])
+        out = []
+        moved = launched(lambda: out.append(
+            cb.spmm_fn(meta, glue, x3d, X.shape[1])))
+        want = {inst("colsum_multi", d): n_streams(meta),
+                inst("outgather", "f64" if d == "f64" else "f32"):
+                    n_outgathers(meta)}
+        if moved != want:
+            raise AssertionError(f"a glue pass {d} launched {moved}, "
+                                 f"expected {want}")
+        return op.perm_out(cb._to_host(out[0]).T), moved
 
     ops, rops, xs, plans = {}, {}, {}, {}
     zero_counts()
@@ -1410,17 +1577,17 @@ def main():
                 f"step ({op._arrays['resident']['res_ent'].shape[0]} "
                 f"residue rows inside it), its y and y2 == the plain one "
                 f"step's bit for bit")
-            t = time.perf_counter()
-            Y, n5, n1 = matmat_counted(op, X)
-            run = time.perf_counter() - t
-            es = [check(name, f"{d} matmat column {j}", Y[:, j],
-                        *golden_mass(csr, X[:, j], d), d, (csr.n_rows,))
-                  for j in range(K_COLS)]
-            log(f"[e2e] {name} {d} matmat {K_COLS} columns (kv "
-                f"{cb.KV_SPMM}): worst column err {max(es):.3e} "
-                f"(mass-scaled, limit {E2E_TOL[d]}); first call {run:.3f} s;"
-                f" launches of the call: K5 {n5}, K1/K3 {n1} "
-                f"({n_streams(m)} streams with the sub-plan's)")
+            for k in (K_COLS, 4, 2):
+                t = time.perf_counter()
+                Y, moved = matmat_counted(op, X[:, :k])
+                run = time.perf_counter() - t
+                es = [check(name, f"{d} matmat column {j} of {k}", Y[:, j],
+                            *golden_mass(csr, X[:, j], d), d,
+                            (csr.n_rows,)) for j in range(k)]
+                log(f"[e2e] {name} {d} matmat {k} columns: worst column "
+                    f"err {max(es):.3e} (mass-scaled, limit {E2E_TOL[d]});"
+                    f" first call {run:.3f} s; launches of the call: "
+                    f"{moved}")
             ops[name, d] = op
             # the resident executor: a default operator's timing loop
             t = time.perf_counter()
@@ -1445,13 +1612,14 @@ def main():
             rops[name, d] = rop
     launches = read_counts()
     log(f"[e2e] kernel launches in this phase: {launches}")
-    if (set(launches) != set(MAIN_PATH + REFERENCE_ORDER)
+    if (set(launches) != set(MAIN_PATH + GLUE_PATH)
             or not all(launches[k] for k in MAIN_PATH)
-            or any(launches[k] for k in REFERENCE_ORDER)):
-        raise AssertionError(f"a kernel of the path never ran, or K1/K3 "
-                             f"ran on it: {launches}")
+            or any(launches[k] for k in GLUE_PATH)):
+        raise AssertionError(f"a kernel of the path never ran, or K1/K3, "
+                             f"K5 or K2/K4 ran on it: {launches}")
     # a plan whose residue is repacked as a sub-plan (RES_REPACK_MIN = 1):
-    # matmat runs the sub-plan's streams through K5 too
+    # a matmat pass sums it by its trees in one K6 pass; the glue's pass
+    # runs the sub-plan's streams through K5
     t = time.perf_counter()
     repack, cb.RES_REPACK_MIN = cb.RES_REPACK_MIN, 1
     try:
@@ -1465,16 +1633,18 @@ def main():
                                  force_streamed=True)
             if op._meta.res is None:
                 raise AssertionError("the residue was not repacked")
-            Y, n5, n1 = matmat_counted(op, Xs)
-            es = [check("sub-plan fixture", f"{d} matmat column {j}",
-                        Y[:, j], *golden_mass(sub, Xs[:, j], d), d,
-                        (sub.n_rows,)) for j in range(Xs.shape[1])]
+            Y, moved = matmat_counted(op, Xs)
+            Yg, moved_g = glue_pass_counted(op, np.pad(Xs, ((0, 0), (0, 3))))
+            es = [check("sub-plan fixture", f"{d} {what} column {j}",
+                        Z[:, j], *golden_mass(sub, Xs[:, j], d), d,
+                        (sub.n_rows,)) for j in range(Xs.shape[1])
+                  for what, Z in (("matmat", Y), ("glue pass", Yg))]
             log(f"[e2e] sub-plan fixture {sub.n_rows}x{sub.n_cols} "
-                f"nnz={sub.nnz} {d} matmat 5 columns: worst column err "
-                f"{max(es):.3e} (mass-scaled, limit {E2E_TOL[d]}); "
-                f"streams={list(op._meta.streams)} + sub-plan "
-                f"{list(op._meta.res.streams)}; launches of the call: K5 "
-                f"{n5}, K1/K3 {n1}")
+                f"nnz={sub.nnz} {d} matmat 5 columns and a glue pass of 8: "
+                f"worst column err {max(es):.3e} (mass-scaled, limit "
+                f"{E2E_TOL[d]}); streams={list(op._meta.streams)} + "
+                f"sub-plan {list(op._meta.res.streams)}; launches of the "
+                f"matmat call: {moved}; of the glue pass: {moved_g}")
     finally:
         cb.RES_REPACK_MIN = repack
     log(f"[e2e] sub-plan fixture done in {time.perf_counter() - t:.2f} s")
@@ -1484,20 +1654,25 @@ def main():
         note(errs)
         note({k: v for k, v in compare_kernels(
             op, rand_tables(op, 5, 4)).items() if "multi" in k})
+        note({f"{inst('resident', d)}_kv{cb.KV_SPMM}":
+              compare_spmm(op, rand_tables(op, 5))})
         log(f"[kernels] {name} {d}: " + ", ".join(
             f"{k} {s:.3e} scaled ({a:.3e} abs)"
             for k, (s, a) in errs.items())
-            + f", limit {KERNEL_TOL[d]}; K5 also at kv = 4; "
-            f"{time.perf_counter() - t:.2f} s")
+            + f", limit {KERNEL_TOL[d]}; K5 also at kv = 4; K6's SpMM pass "
+            f"of {cb.KV_SPMM} == its plain version and each column == one "
+            f"K6 step, bit for bit; {time.perf_counter() - t:.2f} s")
     for (name, d), rop in rops.items():
         x2d = rop._prep_x(xs[name])
         e = compare_resident(rop, x2d)
         note({inst("resident", d): e})
         log(f"[kernels] {name} {d}: K6 == its plain version bit for bit at "
             f"1 and 3 steps ({e[1]:.3e} abs)")
-    # K1/K3 and K2/K4 where K1/K3 still run: the reference-order single-
-    # vector path (the same tables without the K6 schedule), on counts of
-    # their own, each call exactly one K1/K3 a stream and one K2/K4 a plan
+    # K1/K3, K5 and K2/K4 where they still run: the glue path (the same
+    # tables without the K6 schedule), on counts of their own: the
+    # reference-order single-vector SpMV, each call exactly one K1/K3 a
+    # stream and one K2/K4 a plan, and the glue's SpMM pass, exactly one K5
+    # a stream and one K2/K4 a plan
     t = time.perf_counter()
     zero_counts()
     for (name, d), op in ops.items():
@@ -1514,11 +1689,16 @@ def main():
         csr = dict(suite)[name]
         check(name, f"{d} reference-order SpMV", y,
               *golden_mass(csr, xs[name], d), d, (csr.n_rows,))
+        Xg = np.random.default_rng(3).standard_normal((csr.n_cols, K_COLS))
+        Yg, _ = glue_pass_counted(op, Xg)
+        for j in range(K_COLS):
+            check(name, f"{d} glue pass column {j}", Yg[:, j],
+                  *golden_mass(csr, Xg[:, j], d), d, (csr.n_rows,))
     ref_launches = read_counts()
-    launches.update({k: ref_launches[k] for k in REFERENCE_ORDER})
-    log(f"[e2e] reference-order single-vector path (no schedule): "
-        f"launches {ref_launches}, each y within E2E_TOL; "
-        f"{time.perf_counter() - t:.2f} s")
+    launches.update({k: ref_launches[k] for k in GLUE_PATH})
+    log(f"[e2e] glue path (no schedule): the reference-order single-vector "
+        f"SpMV and an SpMM pass of {K_COLS}, launches {ref_launches}, each "
+        f"y within E2E_TOL; {time.perf_counter() - t:.2f} s")
 
     # -- 5. timing -----------------------------------------------------------
     # "eager": each step issued from Python as the operator runs it;
@@ -1643,22 +1823,28 @@ def main():
                     *bound(call_b, CHAIN * flops, d),
                     lib * CHAIN if lib else None)
 
-        # matmat at K_COLS columns: two K5 passes of 4 and one pass of 8
-        # against K_COLS single SpMVs and cuSPARSE A @ X, on the same X (no
-        # chain), per call and per column
+        # matmat at K_COLS columns: one K6 SpMM pass of 8, and on the glue
+        # path (the same tables without their schedule) two K5 passes of 4
+        # and one pass of 8, against K_COLS single SpMVs and cuSPARSE A @
+        # X, on the same X (no chain), per call and per column
         rng = np.random.default_rng(2)
         X = rng.standard_normal((csr.n_cols, K_COLS))
         for d in DTYPES:
             op = ops[name, d]
             meta, arrays = op._meta, op._arrays
+            glue = dict(arrays, resident=None)
             tabs = [op._prep_x(X[:, j]) for j in range(K_COLS)]
+            x_all = multi_x(tabs)
             passes = [multi_x(tabs[c:c + 4]) for c in range(0, K_COLS, 4)]
             steps = {
-                "matmat (K5, kv 4)":
-                    lambda ps=passes, m=meta, a=arrays: [
+                f"matmat (K6 pass, kv {K_COLS})":
+                    lambda x=x_all, m=meta, a=arrays:
+                        cb.spmm_fn(m, a, x, K_COLS),
+                "glue (K5, kv 4)":
+                    lambda ps=passes, m=meta, a=glue: [
                         cb.spmm_fn(m, a, x, 4) for x in ps],
-                f"matmat (K5, kv {K_COLS})":
-                    lambda x=multi_x(tabs), m=meta, a=arrays:
+                f"glue (K5, kv {K_COLS})":
+                    lambda x=x_all, m=meta, a=glue:
                         cb.spmm_fn(m, a, x, K_COLS),
                 f"{K_COLS} x SpMV": lambda tabs=tabs, m=meta, a=arrays: [
                     cb.spmv_fn(m, a, x2) for x2 in tabs],
@@ -1687,14 +1873,26 @@ def main():
                            for n, v in lib_cols.items())
                    if d != "bf16" else "")
                 + f" [{card}]")
-            own, glue = kernel_counts(lambda x=passes[0], m=meta, a=arrays:
-                                      cb.spmm_fn(m, a, x, 4))
-            own1, glue1 = kernel_counts(lambda x=tabs[0], m=meta, a=arrays:
-                                        cb.spmv_fn(m, a, x))
-            log(f"[profile] {name} {d} device kernels of one spmm_fn pass of "
-                f"4 vectors: {own} of the port's (K5, K2/K4) + "
-                f"{glue} of the glue; of one spmv_fn (one K6 step): {own1} "
-                f"+ {glue1}")
+            own8, other8 = kernel_counts(lambda x=x_all, m=meta, a=arrays:
+                                         cb.spmm_fn(m, a, x, K_COLS))
+            own, other = kernel_counts(lambda x=passes[0], m=meta, a=glue:
+                                       cb.spmm_fn(m, a, x, 4))
+            own1, other1 = kernel_counts(lambda x=tabs[0], m=meta, a=arrays:
+                                         cb.spmv_fn(m, a, x))
+            log(f"[profile] {name} {d} device kernels of one K6 SpMM pass "
+                f"of {K_COLS} vectors: {own8} of the port's (K6) + {other8} "
+                f"others (bf16's rounding); of one glue pass of 4 vectors: "
+                f"{own} of the port's (K5, K2/K4) + {other} of the glue; of "
+                f"one spmv_fn (one K6 step): {own1} + {other1}")
+            ph = spmm_phase_split(op, x_all, K_COLS)
+            us = {k: ph[k] / 1e3 for k in ("A", "R", "C", "D")}
+            g = row[f"matmat (K6 pass, kv {K_COLS})"][1] * 1e3
+            log(f"[phase] {name} {d} K6 SpMM pass of {K_COLS} (the clock's "
+                f"own barrier before R): A {us['A']:.2f} us, residue sums R "
+                f"{us['R']:.2f}, C {us['C']:.2f}, D {us['D']:.2f}; sum "
+                f"{sum(us.values()):.2f} us against the graphed pass "
+                f"{g:.2f} us; grid {ph['grid']}, blocks/SM {ph['per_sm']} "
+                f"[{card}]")
 
         # every kernel instance alone at this matrix's shapes (one SpMV's
         # worth: every stream's colsum, the outgather on its y2; one K5
@@ -1765,6 +1963,9 @@ def main():
                     f" one launch {one:.1f} us, one launch a vector "
                     f"{each:.1f} us [{card}]")
             k5_split(op, rand_tables(op, 11, max(KV_SIZES)), name, card)
+            if name == "cop20k_like":
+                spmm_alone(op, csr, rand_tables(op, 9), alone, copy_gbs,
+                           card)
         log(f"[time] {name} done in {time.perf_counter() - t:.2f} s")
 
     # -- T4: the L2 question, on its own launch count ------------------------
@@ -1912,14 +2113,21 @@ def main():
         f"generated and packed in {plan.stats['pack_seconds']:.2f} s; "
         f"s_rows={plan.s_rows}")
     arms.append(("huge_columns", csr, plan, ("f32", "f64")))
+    for name, csr, plan, dtypes in arms[len(suite):]:
+        pass_phase_lines(dev, name, csr, plan, dtypes, card)
     zero_counts()
     bench_arms = bench_phase(dev, arms, card)
     bench_launches = read_counts()
     log(f"[bench] kernel launches in this phase: {bench_launches}")
-    if (not all(bench_launches[k] for k in MAIN_PATH)
-            or any(bench_launches[k] for k in REFERENCE_ORDER)):
+    # the bench's SpMM arm runs passes of K_COLS columns: kv = 8 alone
+    bench_path = [k for k in MAIN_PATH
+                  if not k.endswith(tuple(f"_kv{kv}" for kv in SPMM_KV
+                                          if kv != K_COLS))]
+    if (not all(bench_launches[k] for k in bench_path)
+            or any(bench_launches[k] for k in GLUE_PATH)):
         raise AssertionError(f"a kernel of the bench's path never ran, or "
-                             f"K1/K3 ran on it: {bench_launches}")
+                             f"K1/K3, K5 or K2/K4 ran on it: "
+                             f"{bench_launches}")
     # Two clocks on one loop.  On ONE capture the harness's clock (one
     # replay between two events) and the smoke's (five) must agree within
     # 10 %.  Across captures a resident loop, one launch, must too; a

@@ -43,6 +43,31 @@
 // double: native fp64, where the reference carries double-double pairs
 // and an f32 incidence matmul).
 //
+// An SpMM pass (dasp_resident_{f32,bf16,f64}_kv{2,4,8}, spmm_kernel) runs
+// one step for KV x tables stacked as (KV * S, 128) in one launch, the
+// phases of resident_kernel without the chain and its tap: phase A stages
+// an item's operands once and folds the tables in turn from the same
+// shared tile (XI of them gathered together), each through red and lsum
+// into its own y2, chunk rows and totals; the residue's (task, table)
+// pairs, (C)'s wide rows and long lanes and (D)'s output blocks are dealt
+// over the grid per table.  So A is read from device memory once a pass,
+// as K5 reads it, and a thread holds XI tables' sums at a time, not KV
+// as K5 does: the registers of the one-table build suffice, and the f64
+// instances stay without local memory.  Table v's y2 and out are word for
+// word those of a one-table step on table v.  The pass has a kernel of its
+// own so that resident_kernel's code stays as it was: one kernel
+// templated on KV moved the one-table build's register allocation (8 -> 0
+// local bytes) and made its f32 and bf16 steps 1-3 % slower (PERF.md §6).
+// The phase clock is compiled only at KV = 1 and at KV_CLOCK.  What bounds
+// a pass is phase A's chain of dependent loads, as for a step: with one
+// table's 8 gathers a thread in flight, A at KV = 8 took 3x K5's read of
+// A, so XI_F32 / XI_F64 tables are gathered together.  A pass of 8 at
+// cop20k_like / webbase_like / rmat_like on an NVIDIA H100 80GB HBM3 at
+// 700 W (probes/k6_levers.py's kv arm): f32 61.8 / 90.0 / 663.9 us, f64
+// 107.6 / 173.5 / 1355.4, against 167.3 / 275.7 / 862.6 and 171.2 / 286.3
+// / 943.0 for cuSPARSE A @ X, and f32 86.6 / 121.9 / 898.7 with one table
+// at a time.
+//
 // Order of arithmetic (ops/resident.py's docstring; resident_loop_plain
 // follows it, and every add and product is rounded, never contracted):
 // colsum as K1 (sublanes in order within a level); a vreg's folded level r
@@ -218,6 +243,13 @@ struct Params {
   int per_sm;               // co-resident blocks per SM (for the clock)
 };
 
+// spmm_kernel's: K6's and the words from one x table's buffer to the next's
+// (x's is x_words, y2's (Z + 1) x 128, out's B x 128)
+template <typename A>
+struct PassParams : Params<A> {
+  int64_t cbuf_vs, tot_vs, rsum_vs;
+};
+
 __device__ __forceinline__ long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -373,6 +405,79 @@ __device__ __forceinline__ void colsum_item(int stride, int F,
   }
 }
 
+// colsum_fold for the XI x tables x, x + xs, ... of an SpMM pass, their
+// gathers in flight together: the folded levels lv[u][c] and lane sum
+// ls[u][c] of table u
+template <typename V, typename A, int COLS, int STRIDE, int F, int XI>
+__device__ __forceinline__ void colsum_tables(const int16_t (*tile)[LANES],
+                                              const int32_t* w, int P,
+                                              const V (*vals)[LANES],
+                                              const A* x, int64_t xs, int j,
+                                              A (&lv)[XI][COLS][MAX_R],
+                                              A (&ls)[XI][COLS]) {
+  constexpr int R = SUB / STRIDE;
+  constexpr int TW = LANES / COLS;
+  A acc[XI][COLS][R];
+#pragma unroll
+  for (int u = 0; u < XI; ++u)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int L = 0; L < R; ++L) acc[u][c][L] = A(0);
+#pragma unroll
+  for (int i = 0; i < SUB; ++i) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int jc = j + c * TW;
+      const int lam = (int)tile[i][jc] & 127;
+      const int64_t at = x_row(tile[i], lam, w, P) * LANES + lam;
+#pragma unroll
+      for (int u = 0; u < XI; ++u) {
+        const A xv = x[u * xs + at];
+        acc[u][c][i / STRIDE] =
+            add_rn(acc[u][c][i / STRIDE], mul_rn(widen(vals[i][jc]), xv));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < XI; ++u)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      ls[u][c] = acc[u][c][0];
+#pragma unroll
+      for (int L = 1; L < R; ++L) ls[u][c] = add_rn(ls[u][c], acc[u][c][L]);
+#pragma unroll
+      for (int r = 0; r < R / F; ++r) {
+        lv[u][c][r] = acc[u][c][r * F];
+#pragma unroll
+        for (int f = 1; f < F; ++f)
+          lv[u][c][r] = add_rn(lv[u][c][r], acc[u][c][r * F + f]);
+      }
+    }
+}
+
+template <typename V, typename A, int COLS, int XI>
+__device__ __forceinline__ void colsum_item_tables(
+    int stride, int F, const int16_t (*tile)[LANES], const int32_t* w, int P,
+    const V (*vals)[LANES], const A* x, int64_t xs, int j,
+    A (&lv)[XI][COLS][MAX_R], A (&ls)[XI][COLS]) {
+  if (stride == 8) {
+    colsum_tables<V, A, COLS, 8, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+  } else if (stride == 4) {
+    if (F == 2)
+      colsum_tables<V, A, COLS, 4, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+    else
+      colsum_tables<V, A, COLS, 4, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+  } else {
+    if (F == 4)
+      colsum_tables<V, A, COLS, 2, 4, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+    else if (F == 2)
+      colsum_tables<V, A, COLS, 2, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+    else
+      colsum_tables<V, A, COLS, 2, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+  }
+}
+
 // The COO residue's row sums from the caller's x, a warp per task of
 // the residue schedule (warp `warp` of `warps`, counted from the grid's
 // last warp, whose blocks hold the cheapest items), into rsum.
@@ -408,6 +513,48 @@ __device__ __forceinline__ void residue_sums(const Params<A>& p,
                                  p.x[p.res_cols[s0 + k2]]));
       if (w > L) acc = add_rn(acc, A(0));  // the padding slots' zeros
       p.rsum[e0 + lane] = acc;
+    }
+  }
+}
+
+// residue_sums for the KV x tables of an SpMM pass: a warp per task and
+// table, the KV tables of a task on neighbouring warps
+template <typename A, int KV>
+__device__ __forceinline__ void residue_sums_tables(const PassParams<A>& p,
+                                                    int64_t warp,
+                                                    int64_t warps, int lane) {
+  for (int64_t k = warps - 1 - warp; k < (int64_t)p.n_res_tasks * KV;
+       k += warps) {
+    const int32_t* task = p.res_task + (k / KV) * NTASK;
+    const int64_t tab = k % KV;            // the x table
+    const A* x = p.x + tab * p.x_words;
+    A* rsum = p.rsum + tab * p.rsum_vs;
+    const int64_t e0 = task[T_FIRST];
+    const int32_t* e = p.res_ent + e0 * NRES;
+    if (e[R_W] >= RES_WARP_MIN) {          // one wide row for the warp
+      const int64_t s0 = e[R_SLOT];
+      const int L = e[R_LEN], w = e[R_W];
+      A acc = A(0);
+      for (int k2 = lane; k2 < w; k2 += WARP) {
+        const A v = k2 < L ? mul_rn(p.res_vals[s0 + k2],
+                                    x[p.res_cols[s0 + k2]])
+                           : A(0);
+        acc = k2 == lane ? v : add_rn(acc, v);
+      }
+#pragma unroll
+      for (int s = WARP / 2; s > 0; s >>= 1)
+        acc = add_rn(acc, __shfl_down_sync(0xffffffffu, acc, s));
+      if (lane == 0) rsum[e0] = acc;
+    } else if (lane < task[T_N]) {          // a row a lane
+      const int32_t* el = e + (int64_t)lane * NRES;
+      const int64_t s0 = el[R_SLOT];
+      const int L = el[R_LEN], w = el[R_W];
+      A acc = mul_rn(p.res_vals[s0], x[p.res_cols[s0]]);
+      for (int k2 = 1; k2 < L; ++k2)
+        acc = add_rn(acc, mul_rn(p.res_vals[s0 + k2],
+                                 x[p.res_cols[s0 + k2]]));
+      if (w > L) acc = add_rn(acc, A(0));  // the padding slots' zeros
+      rsum[e0 + lane] = acc;
     }
   }
 }
@@ -640,17 +787,231 @@ resident_kernel(Params<A> p) {
   clock.write(p.per_sm);
 }
 
+// An SpMM pass: one step of resident_kernel for KV > 1 x tables, XI of
+// them (at most KV) gathered together in phase A; no chain, no tap
+template <typename V, typename A, class S, bool CLOCK, int KV, int XI>
+__global__ void __launch_bounds__(S::THREADS, S::MINB)
+spmm_kernel(PassParams<A> p) {
+  constexpr int XN = XI < KV ? XI : KV;
+  static_assert(KV > 1 && KV % XN == 0, "KV > 1 tables, XN at a time");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage<V>* const stage = reinterpret_cast<Stage<V>*>(smem);   // S::STAGES
+  __shared__ A red[VPB][MAX_R][LANES];     // folded levels of the item
+  __shared__ A lsum[VPB][LANES];           // lane sums of the totals
+  cg::grid_group grid = cg::this_grid();
+  constexpr int TW = S::TW;
+  constexpr int NS = S::STAGES;
+  const int j = threadIdx.x;               // lane columns j, j + TW, ...
+  const int t = threadIdx.y;
+  const int64_t row = (int64_t)blockIdx.x * VPB + t;   // this thread row
+  const int64_t rows = (int64_t)gridDim.x * VPB;       // thread rows
+  const int64_t tid = row * TW + j;
+  const int64_t nthreads = rows * TW;
+  const int64_t long_base = (int64_t)(p.Z - p.n_long_rows) * LANES;
+  const int64_t y2_vs = (int64_t)(p.Z + 1) * LANES;     // words a table
+  const int64_t out_vs = (int64_t)p.B * LANES;
+  uint64_t policy = 0;
+  if constexpr (S::EVICT_FIRST) policy = l2_evict_first();
+  Clock<CLOCK> clock(p.stamps);
+  for (int64_t v = row; v < KV; v += rows)   // row Z of each y2, read in (D)
+#pragma unroll
+    for (int c = 0; c < S::COLS; ++c)
+      p.y2[v * y2_vs + (int64_t)p.Z * LANES + j + c * TW] = A(0);
+  int buf = 0;
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k)
+    if (blockIdx.x + (int64_t)k * gridDim.x < p.n_items)
+      stage_item<V, S>(stage[k], p.items, p.desc,
+                       blockIdx.x + (int64_t)k * gridDim.x, t, j, policy);
+
+  // (A) the schedule as in resident_kernel; each item's staged operands
+  // serve the KV tables, XN at a time, each table's folded levels going
+  // through red and lsum in turn
+  for (int64_t g = blockIdx.x; g < p.n_items; g += gridDim.x) {
+    const int64_t next = g + (int64_t)(NS - 1) * gridDim.x;
+    if (next < p.n_items) {
+      stage_item<V, S>(stage[(buf + NS - 1) % NS], p.items, p.desc, next, t,
+                       j, policy);
+      cp_async_wait<NS - 1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const Stage<V>& st = stage[buf];
+    const int32_t* item = st.item;
+    const int64_t* d = p.desc + (int64_t)item[I_STREAM] * NDESC;
+    const bool live = t < item[I_NV];
+    const int w8 = item[I_W];
+    const int R = item[I_R];
+    const bool total = (item[I_MASK] >> t) & 1;
+    const bool to_y2 = item[I_DST] == DST_Y2;
+    const int64_t out0 = item[I_OUT];
+#pragma unroll 1
+    for (int v0 = 0; v0 < KV; v0 += XN) {
+      A lv[XN][S::COLS][MAX_R], ls[XN][S::COLS];
+#pragma unroll
+      for (int u = 0; u < XN; ++u)
+#pragma unroll
+        for (int c = 0; c < S::COLS; ++c) {
+          ls[u][c] = A(0);
+#pragma unroll
+          for (int r = 0; r < MAX_R; ++r) lv[u][c][r] = A(0);
+        }
+      if (live)
+        colsum_item_tables<V, A, S::COLS, XN>(
+            (int)d[D_STRIDE], item[I_F], st.tile[t], &st.wins[t][1],
+            (int)d[D_P], st.vals[t], p.x + v0 * p.x_words, p.x_words, j, lv,
+            ls);
+#pragma unroll
+      for (int u = 0; u < XN; ++u) {
+        const int64_t v = v0 + u;
+        A* const o = to_y2 ? p.y2 + v * y2_vs : p.cbuf + v * p.cbuf_vs;
+        if (u > 0) __syncthreads();          // table v - 1 has read red
+        if (live) {
+#pragma unroll
+          for (int c = 0; c < S::COLS; ++c) {
+            const int jc = j + c * TW;
+            if (w8 == 1 && item[I_DST] != DST_NONE) {
+#pragma unroll
+              for (int r = 0; r < MAX_R; ++r)
+                if (r < R)
+                  o[(out0 + (int64_t)t * R + r) * LANES + jc] = lv[u][c][r];
+            } else if (w8 > 1) {
+#pragma unroll
+              for (int r = 0; r < MAX_R; ++r)
+                if (r < R) red[t][r][jc] = lv[u][c][r];
+            }
+            if (total) lsum[t][jc] = ls[u][c];
+          }
+        }
+        __syncthreads();
+        if (live && w8 > 1 && t % w8 == 0) {   // the first vreg of a slice
+#pragma unroll
+          for (int c = 0; c < S::COLS; ++c) {
+            const int jc = j + c * TW;
+#pragma unroll
+            for (int r = 0; r < MAX_R; ++r) {
+              if (r < R) {
+                A acc = red[t][r][jc];
+                for (int w = 1; w < w8; ++w)
+                  acc = add_rn(acc, red[t + w][r][jc]);
+                o[(out0 + (int64_t)(t / w8) * R + r) * LANES + jc] = acc;
+              }
+            }
+          }
+        }
+        if (live && total && j < 32) {         // warp 0 of the thread row
+          A c0 = lsum[t][j], c1 = lsum[t][j + 32];
+          const A c2 = lsum[t][j + 64], c3 = lsum[t][j + 96];
+          c0 = add_rn(c0, c2);      // s = 64
+          c1 = add_rn(c1, c3);
+          c0 = add_rn(c0, c1);      // s = 32
+#pragma unroll
+          for (int s = 16; s > 0; s >>= 1)
+            c0 = add_rn(c0, __shfl_down_sync(0xffffffffu, c0, s));
+          if (j == 0) p.tot[v * p.tot_vs + (int64_t)item[I_TOT] + t] = c0;
+        }
+      }
+      __syncthreads();
+    }
+    buf = (buf + 1) % NS;
+  }
+  const bool res_lap = CLOCK && p.n_res_tasks > 0;
+  if (res_lap) {                // the clock times the residue on its own
+    grid.sync();
+    clock.lap(S_A);
+  }
+  residue_sums_tables<A, KV>(p, row * (TW / WARP) + j / WARP,
+                             rows * (TW / WARP), j % WARP);
+  grid.sync();
+  clock.lap(res_lap ? S_R : S_A);
+
+  // (C) wide rows and long scalars as in resident_kernel, for each table
+  if (p.n_wide > 0 || p.n_long_rows > 0) {
+    for (int64_t q = row; q < (int64_t)p.n_wide * KV; q += rows) {
+      const int64_t tab = q % KV;
+      const int32_t* wr = p.wide + (q / KV) * NWIDE;
+      const int n = wr[W_N];
+      const int64_t step = (int64_t)wr[W_STEP] * LANES;
+#pragma unroll
+      for (int cc = 0; cc < S::COLS; ++cc) {
+        const A* c = p.cbuf + tab * p.cbuf_vs + (int64_t)wr[W_FIRST] * LANES +
+                     j + cc * TW;
+        A acc = c[0];
+        for (int c0 = 1; c0 < n; c0 += COMBINE) {
+          A v[COMBINE];
+#pragma unroll
+          for (int u = 0; u < COMBINE; ++u)
+            v[u] = c[min(c0 + u, n - 1) * step];
+#pragma unroll
+          for (int u = 0; u < COMBINE; ++u) {
+            const A sum = add_rn(acc, v[u]);
+            acc = c0 + u < n ? sum : acc;
+          }
+        }
+        p.y2[tab * y2_vs + (int64_t)wr[W_Y2] * LANES + j + cc * TW] = acc;
+      }
+    }
+    const int64_t n_lanes = (int64_t)p.n_long_rows * LANES;
+    const int64_t first = (tid + (int64_t)p.n_wide * KV * TW) % nthreads;
+    for (int64_t i = first; i < n_lanes * KV; i += nthreads) {
+      const int64_t v = i / n_lanes, il = i - v * n_lanes;
+      const A* tot = p.tot + v * p.tot_vs;
+      const int l = (int)(il % LANES);
+      const int64_t sp = (il / LANES) * LONG_PACK + l;
+      A acc = A(0);
+      if (l < LONG_PACK && sp < p.n_long) {
+        const int64_t k0 = p.inc_ptr[sp];
+        const int64_t k1 = p.inc_ptr[sp + 1];
+        if (k0 < k1) acc = mul_rn((A)p.inc_mult[k0], tot[p.inc_tot[k0]]);
+        for (int64_t k = k0 + 1; k < k1; ++k)
+          acc = add_rn(acc, mul_rn((A)p.inc_mult[k], tot[p.inc_tot[k]]));
+      }
+      p.y2[v * y2_vs + long_base + il] = acc;
+    }
+    grid.sync();
+    clock.lap(S_C);
+  }
+
+  // (D) the outgather of each table, its residue added
+  constexpr int OG_K = OG_CHUNK * S::COLS < OG_KMAX ? OG_CHUNK * S::COLS
+                                                    : OG_KMAX;
+  for (int64_t b = tid / og_threads<A>(); b < (int64_t)p.B * KV;
+       b += nthreads / og_threads<A>()) {
+    const int64_t v = b / p.B;
+    outgather_block<A, OG_K>(p.src, p.perm, p.y2 + v * y2_vs,
+                             p.out + v * out_vs, b - v * p.B, p.B, p.K, p.Z,
+                             (int)(tid % og_threads<A>()),
+                             p.n_res_tasks ? p.res_bptr : nullptr,
+                             p.res_bent, p.rsum + v * p.rsum_vs);
+  }
+  // the clock's last lap waits for every block
+  if (CLOCK) grid.sync();
+  clock.lap(S_D);
+  clock.write(p.per_sm);
+}
+
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // the dynamic shared memory of a block: its S::STAGES item stages
 template <typename V, class S>
 constexpr size_t stage_bytes() { return S::STAGES * sizeof(Stage<V>); }
 
-// the kernel of an instance, with the phase clock or without it
-template <typename V, typename A, class S>
+constexpr int KV_CLOCK = 8;                // the SpMM pass the clock times
+
+// the kernel of an instance at KV x tables (1: resident_kernel, a chain),
+// with the phase clock or without it; the clock is built at one table and
+// at KV_CLOCK tables only (null elsewhere)
+template <typename V, typename A, class S, int KV = 1, int XI = 1>
 const void* kernel_of(bool clock) {
-  return clock ? (const void*)resident_kernel<V, A, S, true>
-               : (const void*)resident_kernel<V, A, S, false>;
+  if constexpr (KV == 1)
+    return clock ? (const void*)resident_kernel<V, A, S, true>
+                 : (const void*)resident_kernel<V, A, S, false>;
+  else if constexpr (KV == KV_CLOCK)
+    return clock ? (const void*)spmm_kernel<V, A, S, true, KV, XI>
+                 : (const void*)spmm_kernel<V, A, S, false, KV, XI>;
+  else
+    return clock ? nullptr : (const void*)spmm_kernel<V, A, S, false, KV, XI>;
 }
 
 // co-resident blocks a SM of kernel f at its launch shape, after allowing
@@ -670,9 +1031,9 @@ cudaError_t occupancy(const void* f, int* per_sm) {
 // and spill) bytes a thread, static shared bytes a block, the dynamic
 // shared bytes its launch asks for, co-resident blocks a SM at that size,
 // and threads a block
-template <typename V, typename A, class S>
+template <typename V, typename A, class S, int KV = 1, int XI = 1>
 int info(int* out) {
-  const void* f = kernel_of<V, A, S>(false);
+  const void* f = kernel_of<V, A, S, KV, XI>(false);
   cudaFuncAttributes a;
   int per_sm = 0;
   cudaError_t e = cudaFuncGetAttributes(&a, f);
@@ -687,7 +1048,10 @@ int info(int* out) {
   return 0;
 }
 
-template <typename V, typename A, class S>
+// kv = KV x tables: 1 launches resident_kernel (`iters` steps), more
+// spmm_kernel, which needs iters = 1 and no x_scr; the clock runs at
+// kv = 1 and KV_CLOCK only
+template <typename V, typename A, class S, int KV, int XI>
 int launch(const void* desc, const void* items, int n_items,
            const void* wide, int n_wide, void* cbuf, const void* inc_ptr,
            const void* inc_tot, const void* inc_mult, int n_long,
@@ -696,11 +1060,15 @@ int launch(const void* desc, const void* items, int n_items,
            void* tot, void* out, const void* res_ent, const void* res_task,
            int n_res_tasks, const void* res_cols, const void* res_vals,
            void* rsum, const void* res_bptr, const void* res_bent,
-           int iters, double tap, void* stamps, void* stream) {
+           int iters, double tap, void* stamps, int kv, long long cbuf_words,
+           long long tot_words, long long rsum_words, void* stream) {
+  const void* f = kernel_of<V, A, S, KV, XI>(stamps != nullptr);
   if (iters < 1 || n_items < 0 || Z < n_long_rows || K > OG_KMAX ||
-      n_res_tasks < 0 || (iters > 1 && !x_scr))
+      n_res_tasks < 0 || (iters > 1 && !x_scr) || kv != KV ||
+      (KV > 1 && (iters != 1 || x_scr)) || !f)
     return (int)cudaErrorInvalidValue;
-  Params<A> p;
+  PassParams<A> pp;
+  Params<A>& p = pp;
   p.desc = static_cast<const int64_t*>(desc);
   p.items = static_cast<const int32_t*>(items);
   p.n_items = n_items;
@@ -734,6 +1102,9 @@ int launch(const void* desc, const void* items, int n_items,
   p.iters = iters;
   p.tap = (A)tap;
   p.stamps = static_cast<long long*>(stamps);
+  pp.cbuf_vs = cbuf_words;
+  pp.tot_vs = tot_words;
+  pp.rsum_vs = rsum_words;
 
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -742,7 +1113,6 @@ int launch(const void* desc, const void* items, int n_items,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const size_t dyn = stage_bytes<V, S>();
-  const void* f = kernel_of<V, A, S>(stamps != nullptr);
   if (e == cudaSuccess) e = occupancy<V, S>(f, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
@@ -750,14 +1120,15 @@ int launch(const void* desc, const void* items, int n_items,
   p.per_sm = per_sm;
   // as many blocks as are co-resident, or as the largest phase has work
   int64_t need = n_items;
-  need = std::max(need, cdiv(n_wide, VPB));
-  need = std::max(need, cdiv((int64_t)B * og_threads<A>(), S::THREADS));
+  need = std::max(need, cdiv((int64_t)n_wide * KV, VPB));
+  need = std::max(need, cdiv((int64_t)B * KV * og_threads<A>(), S::THREADS));
   if (iters > 1) need = std::max(need, cdiv(x_words, S::THREADS));
-  need = std::max(need, cdiv((int64_t)n_long_rows * LANES, S::THREADS));
-  need = std::max(need, cdiv(n_res_tasks, S::THREADS / WARP));
+  need = std::max(need,
+                  cdiv((int64_t)n_long_rows * LANES * KV, S::THREADS));
+  need = std::max(need, cdiv((int64_t)n_res_tasks * KV, S::THREADS / WARP));
   const int grid = (int)std::max<int64_t>(
       1, std::min<int64_t>(need, (int64_t)per_sm * sms));
-  void* args[] = {&p};
+  void* args[] = {KV == 1 ? (void*)&p : (void*)&pp};
   e = cudaLaunchCooperativeKernel(f, dim3(grid), dim3(S::TW, VPB), args, dyn,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
@@ -768,10 +1139,19 @@ int launch(const void* desc, const void* items, int n_items,
 // probes/k6_levers.py measured for its value type (the header note)
 using ShapeF32 = Shape<1, 2, 2, true>;     // f32 and bf16 values
 using ShapeF64 = Shape<2, 2, 2, true>;
+// x tables an SpMM pass gathers together in phase A, by value type
+// (probes/k6_levers.py's kv arm, PERF.md §6).  Against one at a time (8
+// gathers a thread in flight, phase A at 3x K5's read of A): in f32 and
+// bf16 four cut a pass of 8 by 26-30 % on cop20k_like, webbase_like and
+// rmat_like and by 18 % on uniform_medium; in f64 two cut it by 6-12 % on
+// the first three and cost 11 % on uniform_medium, the best geomean of
+// one, two and four (four: 7-11 % and 18 %)
+constexpr int XI_F32 = 4;                  // f32 and bf16 values
+constexpr int XI_F64 = 2;
 
 }  // namespace
 
-#define DASP_RESIDENT(NAME, V, A, S)                                         \
+#define DASP_RESIDENT(NAME, V, A, S, KV, XI)                                 \
   extern "C" int NAME(                                                       \
       const void* desc, const void* items, int n_items, const void* wide,    \
       int n_wide, void* cbuf, const void* inc_ptr, const void* inc_tot,      \
@@ -781,26 +1161,55 @@ using ShapeF64 = Shape<2, 2, 2, true>;
       const void* res_ent, const void* res_task, int n_res_tasks,            \
       const void* res_cols, const void* res_vals, void* rsum,                \
       const void* res_bptr, const void* res_bent, int iters, double tap,     \
-      void* stamps, void* stream) {                                          \
-    return launch<V, A, S>(desc, items, n_items, wide, n_wide, cbuf,         \
-                           inc_ptr, inc_tot, inc_mult, n_long, n_long_rows,  \
-                           src, perm, B, K, Z, x, x_scr, x_words, y2, tot,   \
-                           out, res_ent, res_task, n_res_tasks, res_cols,    \
-                           res_vals, rsum, res_bptr, res_bent, iters, tap,   \
-                           stamps, stream);                                  \
+      void* stamps, int kv, long long cbuf_words, long long tot_words,       \
+      long long rsum_words, void* stream) {                                  \
+    return launch<V, A, S, KV, XI>(                                          \
+        desc, items, n_items, wide, n_wide, cbuf, inc_ptr, inc_tot,          \
+        inc_mult, n_long, n_long_rows, src, perm, B, K, Z, x, x_scr,         \
+        x_words, y2, tot, out, res_ent, res_task, n_res_tasks, res_cols,     \
+        res_vals, rsum, res_bptr, res_bent, iters, tap, stamps, kv,          \
+        cbuf_words, tot_words, rsum_words, stream);                          \
   }
 
-DASP_RESIDENT(dasp_resident_f32, float, float, ShapeF32)
-DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float, ShapeF32)
-DASP_RESIDENT(dasp_resident_f64, double, double, ShapeF64)
+DASP_RESIDENT(dasp_resident_f32, float, float, ShapeF32, 1, 1)
+DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float, ShapeF32, 1, 1)
+DASP_RESIDENT(dasp_resident_f64, double, double, ShapeF64, 1, 1)
 
-// K6's build figures (info above) for value type dtype: 0 f32, 1 bf16,
-// 2 f64; int[6] out
-extern "C" int dasp_resident_info(int dtype, int* out) {
-  switch (dtype) {
-    case 0: return info<float, float, ShapeF32>(out);
-    case 1: return info<__nv_bfloat16, float, ShapeF32>(out);
-    case 2: return info<double, double, ShapeF64>(out);
+// the SpMM pass: kv tables at one step (probes/k6_levers.cu, which includes
+// this file, builds kv = 1 alone)
+#ifndef DASP_RESIDENT_KV1_ONLY
+DASP_RESIDENT(dasp_resident_f32_kv2, float, float, ShapeF32, 2, XI_F32)
+DASP_RESIDENT(dasp_resident_f32_kv4, float, float, ShapeF32, 4, XI_F32)
+DASP_RESIDENT(dasp_resident_f32_kv8, float, float, ShapeF32, 8, XI_F32)
+DASP_RESIDENT(dasp_resident_bf16_kv2, __nv_bfloat16, float, ShapeF32, 2,
+              XI_F32)
+DASP_RESIDENT(dasp_resident_bf16_kv4, __nv_bfloat16, float, ShapeF32, 4,
+              XI_F32)
+DASP_RESIDENT(dasp_resident_bf16_kv8, __nv_bfloat16, float, ShapeF32, 8,
+              XI_F32)
+DASP_RESIDENT(dasp_resident_f64_kv2, double, double, ShapeF64, 2, XI_F64)
+DASP_RESIDENT(dasp_resident_f64_kv4, double, double, ShapeF64, 4, XI_F64)
+DASP_RESIDENT(dasp_resident_f64_kv8, double, double, ShapeF64, 8, XI_F64)
+#endif
+
+// K6's build figures (info above) for value type dtype (0 f32, 1 bf16,
+// 2 f64) at kv tables (1, 2, 4, 8); int[6] out
+extern "C" int dasp_resident_info(int dtype, int kv, int* out) {
+  switch (dtype * 16 + kv) {
+    case 1: return info<float, float, ShapeF32>(out);
+    case 17: return info<__nv_bfloat16, float, ShapeF32>(out);
+    case 33: return info<double, double, ShapeF64>(out);
+#ifndef DASP_RESIDENT_KV1_ONLY
+    case 2: return info<float, float, ShapeF32, 2, XI_F32>(out);
+    case 4: return info<float, float, ShapeF32, 4, XI_F32>(out);
+    case 8: return info<float, float, ShapeF32, 8, XI_F32>(out);
+    case 18: return info<__nv_bfloat16, float, ShapeF32, 2, XI_F32>(out);
+    case 20: return info<__nv_bfloat16, float, ShapeF32, 4, XI_F32>(out);
+    case 24: return info<__nv_bfloat16, float, ShapeF32, 8, XI_F32>(out);
+    case 34: return info<double, double, ShapeF64, 2, XI_F64>(out);
+    case 36: return info<double, double, ShapeF64, 4, XI_F64>(out);
+    case 40: return info<double, double, ShapeF64, 8, XI_F64>(out);
+#endif
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,17 +9,20 @@ def _counted():
     from .colsum import colsum
     from .colsum_multi import colsum_multi
     from .outgather import outgather
-    from .resident import resident_loop
+    from .resident import resident_loop, spmm_loop
     return (("colsum", colsum), ("colsum_multi", colsum_multi),
-            ("outgather", outgather), ("resident", resident_loop))
+            ("outgather", outgather), ("resident", resident_loop),
+            ("resident", spmm_loop))
 
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of every kernel instance of the SpMV path since the counts
     were last set to 0, from the wrappers' ``launches`` (each adds one
-    where it launches its kernel); the f32 instance bears the bare name."""
-    return {base if d == "f32" else f"{base}_{d}": n
-            for base, fn in _counted() for d, n in fn.launches.items()}
+    where it launches its kernel), by instance: the f32 one bears the bare
+    name ("resident", "resident_bf16", "resident_kv8",
+    "resident_f64_kv8")."""
+    return {"_".join([base] + [k for k in key.split("_") if k != "f32"]): n
+            for base, fn in _counted() for key, n in fn.launches.items()}
 
 
 def zero_kernel_launches() -> None:

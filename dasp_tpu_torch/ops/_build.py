@@ -51,7 +51,10 @@ _RESIDENT = (_P, _P, _I, _P, _I, _P,    # desc, items, n_items, wide, n_wide,
              _P, _P, _I, _P, _P, _P,    # res_ent, res_task, n_res_tasks,
                                         # res_cols, res_vals, rsum
              _P, _P,                    # res_bptr, res_bent
-             _I, _D, _P, _P)            # iters, tap, stamps, stream
+             _I, _D, _P,                # iters, tap, stamps
+             _I, _L, _L, _L,            # kv, words a table of cbuf, tot
+                                        # and rsum
+             _P)                        # stream
 _PROBE = (_P, _P, _P, _P, _L, _I, _P)
 _ROUNDCOST = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
 _STREAM = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
@@ -67,12 +70,12 @@ SIGNATURES = {
     # src, perm, y2, out, B, K, zero_row, batch, y2 words a vector, stream
     "dasp_outgather_f32": _OUTGATHER,
     "dasp_outgather_f64": _OUTGATHER,
-    # K6, one cooperative launch for `iters` chained SpMVs (ops/resident.py)
-    "dasp_resident_f32": _RESIDENT,
-    "dasp_resident_bf16": _RESIDENT,
-    "dasp_resident_f64": _RESIDENT,
-    # value type (0 f32, 1 bf16, 2 f64), int[6] out
-    "dasp_resident_info": (_I, _P),
+    # K6, one cooperative launch for `iters` chained SpMVs, and its SpMM
+    # pass of kv x tables at one step (ops/resident.py)
+    **{f"dasp_resident_{d}{kv}": _RESIDENT for d in ("f32", "bf16", "f64")
+       for kv in ("", "_kv2", "_kv4", "_kv8")},
+    # value type (0 f32, 1 bf16, 2 f64), kv, int[6] out
+    "dasp_resident_info": (_I, _I, _P),
     # T4: vals, idx, x (64,128), out, nv, iters, stream
     "dasp_resident_probe": _PROBE,
     # T1: idx, xw (2048,128), out, rows, body, stream

@@ -16,9 +16,12 @@ The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
   the reference-order glue: one colsum launch per stream (K1, or K3 in
   f64, ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
   outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
-* ``spmm_fn`` runs one multi-vector colsum launch per stream (K5,
-  ``ops/colsum_multi.py``) for kv vectors, then that glue once, the
-  vector as a batch dimension, and one outgather launch.
+* ``spmm_fn`` runs a pass of kv = 2, 4 or 8 vectors as ONE launch of the
+  resident executor's kv-table instance at one step (``resident.spmm_loop``)
+  on every table set with a schedule, and kv = 1 as ``spmv_fn``.  Table
+  sets without one take the glue: one multi-vector colsum launch per
+  stream (K5, ``ops/colsum_multi.py``) for the kv vectors, then the glue
+  once, the vector as a batch dimension, and one outgather launch.
 * ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474), on the
   CUDA card unless the caller names another device: ``__call__``,
   ``matmat``, and ``timing_loop``, which runs the whole chain in one K6
@@ -69,14 +72,15 @@ OB = 64          # outgather block alignment of B_pad (pallas_backend.py:48)
 RES_REPACK_MIN = 16384
 RES_MAX_DEPTH = 3
 
-# Most x vectors per multi-vector colsum launch (SpMM), for every dtype.
-# The reference runs 4 (pallas_backend.py:163) and halves kv until the
-# stacked x tables fit VMEM (SPMM_X_VMEM_BYTES); here they live in device
-# memory.  A pass runs its glue once whatever its kv, and the glue, not K5,
-# sets a pass's time, so 8 columns in one pass of 8 cost 0.60-0.70 of two
-# passes of 4 per column in f32, f64 and bf16 on both suite arms of
-# chip_smoke.py (an NVIDIA H100 80GB HBM3, PERF.md); ``matmat`` takes a
-# smaller kv for a short last pass.
+# Most x vectors per SpMM pass (one K6 launch, or on tables without a
+# schedule one K5 launch per stream and the glue), for every dtype.  The
+# reference runs 4 (pallas_backend.py:163) and halves kv until the stacked
+# x tables fit VMEM (SPMM_X_VMEM_BYTES); here they live in device memory.
+# A pass reads A once and pays its fixed costs (the glue's kernels, or
+# K6's grid barriers) once whatever its kv: on the glue path 8 columns in
+# one pass of 8 cost 0.60-0.70 of two passes of 4 per column in f32, f64
+# and bf16 on both suite arms of chip_smoke.py (an NVIDIA H100 80GB HBM3,
+# PERF.md); ``matmat`` takes a smaller kv for a short last pass.
 KV_SPMM = 8
 
 # timing_loop's feedback: each chained step adds y[0] * TAP into x, so no
@@ -539,8 +543,9 @@ def spmv_fn(meta: WMeta, arrays: Dict, x2d: torch.Tensor,
     ``resident_loop(meta, arrays, x2d, 1)``, one launch with the residue
     inside.  Without one (the empty plan; ``arrays_from_reference``'s
     tables): the reference-order glue, the one-vector case of what
-    ``spmm_fn`` runs, on K1/K3 (one colsum per stream), ``_assemble_y``
-    and K2/K4.  The two differ in the order of their sums only."""
+    ``spmm_fn`` runs on such tables, on K1/K3 (one colsum per stream),
+    ``_assemble_y`` and K2/K4.  The two differ in the order of their sums
+    only."""
     if arrays.get("resident") is not None:
         from . import resident
         loop = (resident.resident_loop_plain if plain
@@ -584,20 +589,31 @@ def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
     """Multi-vector SpMV (SpMM, pallas_backend.py:1017-1040): x3d
     (kv*s_rows, 128), kv stacked x tables (f64 for f64 plans, f32
     otherwise) -> y (kv, n_rows) in the plan's row order and output dtype.
+    Row j depends on table j alone.
 
-    One K5 launch per stream reads the A stream once for all kv vectors;
-    then the glue runs ONCE on the (kv, rows, 128) partials, with the
-    vector as a batch dimension, one outgather launch covers the kv
-    vectors, and a residue sub-plan recurses as an SpMM (its streams run
-    through K5 too).  Row j depends on table j alone, and equals, bit for
-    bit, the reference-order ``spmv_fn`` on it (the tables without their
-    schedule); the scheduled ``spmv_fn`` (K6) sums in another order.  For
-    f64 this is one fp64 pass, where the reference
-    runs two f32 cross-product passes (spmm_fn_dd, :1043)."""
+    Tables with a schedule (``arrays["resident"]``): one launch of K6's
+    kv-table instance at one step (``resident.spmm_loop``), which reads
+    each A tile once for the kv tables and sums the residue by its trees;
+    kv = 1 is one K6 step.  Row j equals, bit for bit, the scheduled
+    ``spmv_fn`` (one K6 step) on table j.  ``plain`` runs the plain
+    version (``resident.spmm_loop_plain``).
+
+    Without one (the empty plan; ``arrays_from_reference``'s tables): one
+    K5 launch per stream reads the A stream once for all kv vectors; then
+    the glue runs ONCE on the (kv, rows, 128) partials, with the vector as
+    a batch dimension, one outgather launch covers the kv vectors, and a
+    residue sub-plan recurses as an SpMM (its streams run through K5 too).
+    Row j then equals, bit for bit, the reference-order ``spmv_fn`` on it.
+    For f64 both are one fp64 pass, where the reference runs two f32
+    cross-product passes (spmm_fn_dd, :1043)."""
     if x3d.shape[0] != kv * meta.s_rows:
         raise ValueError(f"spmm_fn: x3d has {x3d.shape[0]} rows, kv "
                          f"{kv} tables of {meta.s_rows} have "
                          f"{kv * meta.s_rows}")
+    if arrays.get("resident") is not None:
+        from . import resident
+        loop = resident.spmm_loop_plain if plain else resident.spmm_loop
+        return loop(meta, arrays, x3d, kv)
     return _narrow(meta, _wide(meta, arrays, x3d.view(kv, -1, LANES), plain,
                                multi=True))
 
@@ -711,7 +727,8 @@ class TorchSpMV:
     device x table to a device y in the plan's (possibly relabeled) row
     order.  Every plan with a stream gets the resident executor's
     schedule (K6, ``ops/resident.py``), so ``__call__`` and
-    ``device_call`` are one K6 step each; ``timing_loop`` runs the whole
+    ``device_call`` are one K6 step each, and each pass of ``matmat`` one
+    K6 launch over its kv columns; ``timing_loop`` runs the whole
     chain in one K6 launch when ``resident`` is true, which is every plan
     with a stream unless ``force_streamed``, and one K6 step a SpMV
     otherwise.  ``config.strict_f64`` changes nothing: the f64 path is

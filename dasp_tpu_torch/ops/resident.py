@@ -78,10 +78,21 @@ fold waits on device memory in phase A.  A wide row's chunks (at most
 w8 / VPB = 8 on the packer's widest class, w8 = 32) are loaded eight at a
 time before the first add, one round trip for the whole fold.
 
-``resident_loop`` takes a CPU tensor to ``resident_loop_plain`` and a CUDA
-tensor to the kernel; there is no fallback from one to the other.
-``resident_loop.launches`` counts kernel launches per instance ("f32",
-"bf16", "f64").
+An SpMM pass of kv = 2, 4 or 8 columns (``spmm_loop``, what
+``cuda_backend.spmm_fn`` runs on a table set with a schedule) is one
+launch of the kernel's kv-table instance at one step: kv x tables stacked
+as (kv*s_rows, 128), each item's A tile read once for them all, and table
+j's y2 and out word for word those of one step on table j alone, so
+column j equals ``resident_loop(meta, arrays, x_j, 1)`` (``device_call``)
+bit for bit.
+``spmm_loop_plain`` is ``resident_loop_plain`` at one step with the kv
+tables as a leading batch dimension.
+
+``resident_loop`` and ``spmm_loop`` take a CPU tensor to their plain
+versions and a CUDA tensor to the kernel; there is no fallback from one to
+the other.  ``resident_loop.launches`` counts kernel launches per instance
+("f32", "bf16", "f64"), ``spmm_loop.launches`` per instance and kv
+("f32_kv2", ..., "f64_kv8").
 """
 
 from __future__ import annotations
@@ -95,7 +106,8 @@ import torch
 from ..wplan import SUB, LANES, LONG_PACK
 from . import _build
 from . import cuda_backend as cb
-from .colsum import colsum_plain
+from .colsum import colsum_multi_plain
+from .colsum_multi import KV_SIZES
 from .outgather import outgather_plain
 
 # int64 fields of one stream's row of the kernel's descriptor table, in
@@ -127,6 +139,8 @@ RES_TREE = (16, 8, 4, 2, 1)     # lane-tree steps of a wide residue row
 # tap), the grid and blocks per SM
 STAMPS = ("A", "R", "C", "D", "grid", "per_sm")
 STAMP_WORDS = len(STAMPS)
+CLOCK_KV = (1, 8)   # x tables a launch with the clock may have (the builds
+                    # with the clock compiled in)
 
 
 def eligible(meta) -> bool:
@@ -453,33 +467,49 @@ def _check_residue(meta, res: Dict) -> None:
                          "once")
 
 
-def _check(fn: str, meta, arrays: Dict, x2d: torch.Tensor, iters) -> str:
-    """Validate a resident call; return the kernel instance's name."""
+def _check(fn: str, meta, arrays: Dict, x: torch.Tensor, iters,
+           kv: int = 1, stamps: torch.Tensor = None) -> str:
+    """Validate a resident call on ``kv`` x tables stacked as (kv*s_rows,
+    128) (kv > 1: one step); return the kernel instance's value type."""
     res = arrays.get("resident")
     if res is None:
         raise ValueError(f"{fn}: the plan has no resident tables (the "
                          "empty plan, or tables carried from the reference)")
-    if x2d.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn}: unsupported device {x2d.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if kv not in KV_SIZES:
+        raise ValueError(f"{fn}: kv {kv!r} must be one of {KV_SIZES}")
     xdt = torch.float64 if meta.dtype == "f64" else torch.float32
-    if (x2d.dtype != xdt or tuple(x2d.shape) != (meta.s_rows, LANES)
-            or not x2d.is_contiguous()):
+    if (x.dtype != xdt or tuple(x.shape) != (kv * meta.s_rows, LANES)
+            or not x.is_contiguous()):
         raise ValueError(
-            f"{fn}: x must be a contiguous {xdt} ({meta.s_rows}, {LANES}) "
-            f"tensor, got {x2d.dtype} {tuple(x2d.shape)}")
-    if res["src"].device != x2d.device:
-        raise ValueError(f"{fn}: x is on {x2d.device}, the tables on "
+            f"{fn}: x must be a contiguous {xdt} ({kv * meta.s_rows}, "
+            f"{LANES}) tensor ({kv} x table(s) of {meta.s_rows} rows), got "
+            f"{x.dtype} {tuple(x.shape)}")
+    if res["src"].device != x.device:
+        raise ValueError(f"{fn}: x is on {x.device}, the tables on "
                          f"{res['src'].device}")
     if not isinstance(iters, int) or iters < 1:
         raise ValueError(f"{fn}: iters must be an int >= 1, got {iters!r}")
-    if (x2d.device.type == "cuda"
-            and x2d.device.index != torch.cuda.current_device()):
+    if kv > 1 and iters != 1:
+        raise ValueError(f"{fn}: iters must be 1 at kv = {kv} (an SpMM "
+                         f"pass is one step), got {iters}")
+    if (x.device.type == "cuda"
+            and x.device.index != torch.cuda.current_device()):
         # the kernel library launches on the current device's context
-        raise ValueError(f"{fn}: {x2d.device} is not the current CUDA "
+        raise ValueError(f"{fn}: {x.device} is not the current CUDA "
                          "device (use torch.cuda.device(...))")
-    if x2d.device.type == "cuda" and x2d.data_ptr() % 16:
+    if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError(f"{fn}: x must be 16-byte aligned (the tap reads "
                          "it in 16-byte vectors)")
+    if stamps is not None and (
+            stamps.device != x.device or x.device.type != "cuda"
+            or stamps.dtype != torch.int64
+            or tuple(stamps.shape) != (STAMP_WORDS,) or kv not in CLOCK_KV):
+        raise ValueError(f"{fn}: stamps must be an int64 ({STAMP_WORDS},) "
+                         f"tensor on x's CUDA device, at kv in {CLOCK_KV}, "
+                         f"got {stamps.dtype} {tuple(stamps.shape)} on "
+                         f"{stamps.device} (x on {x.device}, kv {kv})")
     return meta.dtype
 
 
@@ -497,15 +527,7 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
     ``grid.sync()`` that ends it, and the grid it ran on.  The plain
     version has no clock.  ``scratch``, a dict, receives the kernel's
     last y2 and out (the smoke holds them to the plain version's)."""
-    name = _check("resident_loop", meta, arrays, x2d, iters)
-    if stamps is not None and (
-            stamps.device != x2d.device or x2d.device.type != "cuda"
-            or stamps.dtype != torch.int64
-            or tuple(stamps.shape) != (STAMP_WORDS,)):
-        raise ValueError(f"resident_loop: stamps must be an int64 "
-                         f"({STAMP_WORDS},) tensor on x's CUDA device, got "
-                         f"{stamps.dtype} {tuple(stamps.shape)} on "
-                         f"{stamps.device} (x on {x2d.device})")
+    name = _check("resident_loop", meta, arrays, x2d, iters, 1, stamps)
     if x2d.device.type == "cpu":
         return resident_loop_plain(meta, arrays, x2d, iters)
     entry = f"dasp_resident_{name}"
@@ -520,23 +542,59 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
 resident_loop.launches = {"f32": 0, "bf16": 0, "f64": 0}
 
 
-def launch_entry(fn, entry: str, meta, arrays: Dict, x2d: torch.Tensor,
-                 iters: int, stamps: torch.Tensor = None):
-    """Allocate K6's buffers on x2d's device and launch the C entry point
-    ``fn`` (named ``entry``, with ``_build.SIGNATURES["dasp_resident_f32"]``'s
-    arguments) on a call ``resident_loop`` has checked; return the last
-    step's y2 and out.  Raises if the launch is refused.  It counts no
-    launch: ``resident_loop`` does, and probes/k6_levers.py launches its
-    own builds of the kernel through it."""
+def spmm_loop(meta, arrays: Dict, x3d: torch.Tensor, kv: int,
+              stamps: torch.Tensor = None,
+              scratch: Dict = None) -> torch.Tensor:
+    """An SpMM pass: K6's kv-table instance at one step (one cooperative
+    launch) on CUDA tensors, ``spmm_loop_plain`` on CPU tensors.  x3d
+    (kv*s_rows, 128), kv in (1, 2, 4, 8), the stacked x tables, is never
+    written.  Returns y (kv, n_rows) in the plan's row order and output
+    dtype; row j equals ``resident_loop`` at one step on table j, bit for
+    bit.  kv = 1 is that step.  ``stamps`` (at kv = 1 or 8) and
+    ``scratch`` (y2 and out, (kv, ...)) as for ``resident_loop``."""
+    name = _check("spmm_loop", meta, arrays, x3d, 1, kv, stamps)
+    if kv == 1:
+        return resident_loop(meta, arrays, x3d, 1, stamps,
+                             scratch).unsqueeze(0)
+    if x3d.device.type == "cpu":
+        return spmm_loop_plain(meta, arrays, x3d, kv)
+    entry = f"dasp_resident_{name}_kv{kv}"
+    y2, out = launch_entry(getattr(_build.library(), entry), entry, meta,
+                           arrays, x3d, 1, stamps, kv)
+    spmm_loop.launches[f"{name}_kv{kv}"] += 1
+    if scratch is not None:
+        scratch.update(y2=y2, out=out)
+    return _finish(meta, out)
+
+
+spmm_loop.launches = {f"{d}_kv{kv}": 0 for d in ("f32", "bf16", "f64")
+                      for kv in KV_SIZES[1:]}
+
+
+def launch_entry(fn, entry: str, meta, arrays: Dict, x: torch.Tensor,
+                 iters: int, stamps: torch.Tensor = None, kv: int = 1):
+    """Allocate K6's buffers on x's device, one set per x table, and
+    launch the C entry point ``fn`` (named ``entry``, with
+    ``_build.SIGNATURES["dasp_resident_f32"]``'s arguments) for the kv
+    tables of x; return the last step's y2 and out ((kv, ...) at kv > 1).
+    Checks the call as ``resident_loop`` does and raises if the launch is
+    refused.  It counts no launch: ``resident_loop`` and ``spmm_loop`` do,
+    and probes/k6_levers.py launches its own builds of the kernel through
+    it."""
+    _check(entry, meta, arrays, x, iters, kv, stamps)
     res = arrays["resident"]
-    dev, dt = x2d.device, x2d.dtype
-    x_scr = torch.empty_like(x2d) if iters > 1 else None   # the taps' x
-    rsum = torch.empty(max(res["res_ent"].shape[0], 1), dtype=dt, device=dev)
-    y2 = torch.empty((meta.n_y2_rows + 1, LANES), dtype=dt, device=dev)
-    cbuf = torch.empty((max(res["chunk_rows"], 1), LANES), dtype=dt,
-                       device=dev)
-    tot = torch.empty(max(res["n_tot"], 1), dtype=dt, device=dev)
-    out = torch.empty((meta.B_pad, LANES), dtype=dt, device=dev)
+    dev, dt = x.device, x.dtype
+    lead = (kv,) if kv > 1 else ()
+    x_scr = torch.empty_like(x) if iters > 1 else None   # the taps' x
+    n_res = max(res["res_ent"].shape[0], 1)
+    n_cbuf = max(res["chunk_rows"], 1) * LANES
+    n_tot = max(res["n_tot"], 1)
+    rsum = torch.empty(lead + (n_res,), dtype=dt, device=dev)
+    y2 = torch.empty(lead + (meta.n_y2_rows + 1, LANES), dtype=dt,
+                     device=dev)
+    cbuf = torch.empty(lead + (n_cbuf,), dtype=dt, device=dev)
+    tot = torch.empty(lead + (n_tot,), dtype=dt, device=dev)
+    out = torch.empty(lead + (meta.B_pad, LANES), dtype=dt, device=dev)
     rc = fn(
         res["desc"].data_ptr(), res["items"].data_ptr(),
         res["items"].shape[0], res["wide"].data_ptr(), res["wide"].shape[0],
@@ -544,15 +602,15 @@ def launch_entry(fn, entry: str, meta, arrays: Dict, x2d: torch.Tensor,
         res["inc_tot"].data_ptr(), res["inc_mult"].data_ptr(), meta.n_long,
         meta.n_long_rows, res["src"].data_ptr(),
         arrays["out_perm"].data_ptr(), meta.B_pad, meta.k_used,
-        meta.n_y2_rows, x2d.data_ptr(),
-        None if x_scr is None else x_scr.data_ptr(), x2d.numel(),
+        meta.n_y2_rows, x.data_ptr(),
+        None if x_scr is None else x_scr.data_ptr(), x.numel() // kv,
         y2.data_ptr(), tot.data_ptr(), out.data_ptr(),
         res["res_ent"].data_ptr(), res["res_task"].data_ptr(),
         res["res_task"].shape[0], res["res_cols"].data_ptr(),
         res["res_vals"].data_ptr(), rsum.data_ptr(),
         res["res_bptr"].data_ptr(), res["res_bent"].data_ptr(), iters,
-        float(cb.TAP), None if stamps is None else stamps.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(cb.TAP), None if stamps is None else stamps.data_ptr(), kv,
+        n_cbuf, n_tot, n_res, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, entry)
     return y2, out
 
@@ -562,22 +620,24 @@ INFO_FIELDS = ("registers", "local_bytes", "static_shared_bytes",
                "dynamic_shared_bytes", "blocks_per_sm", "threads")
 
 
-def kernel_info(name: str) -> dict:
-    """What the build gave K6's instance ``name`` ("f32", "bf16", "f64"):
+def kernel_info(name: str, kv: int = 1) -> dict:
+    """What the build gave K6's instance ``name`` ("f32", "bf16", "f64")
+    at ``kv`` x tables (1: the chained loop; 2, 4, 8: the SpMM pass):
     registers and local (stack and spill) bytes a thread, static shared
     bytes a block, the dynamic shared bytes its launch asks for,
     co-resident blocks a SM at that size, and threads a block
     (``INFO_FIELDS``).  Builds the library: needs the card."""
-    if name not in resident_loop.launches:
-        raise ValueError(f"kernel_info: no K6 instance {name!r} (one of "
-                         f"{tuple(resident_loop.launches)})")
+    if name not in resident_loop.launches or kv not in KV_SIZES:
+        raise ValueError(f"kernel_info: no K6 instance {name!r} at kv "
+                         f"{kv!r} (one of {tuple(resident_loop.launches)} "
+                         f"at {KV_SIZES})")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_info: K6's build figures need a CUDA "
                            "card (torch.cuda.is_available() is False)")
     out = (ctypes.c_int * len(INFO_FIELDS))()
     _build.check(_build.library().dasp_resident_info(
-        tuple(resident_loop.launches).index(name), ctypes.addressof(out)),
-        "dasp_resident_info")
+        tuple(resident_loop.launches).index(name), kv,
+        ctypes.addressof(out)), "dasp_resident_info")
     return dict(zip(INFO_FIELDS, out))
 
 
@@ -586,108 +646,135 @@ def resident_loop_plain(meta, arrays: Dict, x2d: torch.Tensor,
     """The computation of ``resident_loop`` in plain PyTorch on any
     device, in the kernel's order of arithmetic (module docstring)."""
     _check("resident_loop_plain", meta, arrays, x2d, iters)
-    x = x2d
+    return _plain(meta, arrays, x2d, iters)
+
+
+def spmm_loop_plain(meta, arrays: Dict, x3d: torch.Tensor,
+                    kv: int) -> torch.Tensor:
+    """The computation of ``spmm_loop`` in plain PyTorch on any device:
+    ``resident_loop_plain`` at one step with the kv x tables as a leading
+    batch dimension (every op elementwise or a gather, so row j is that
+    of table j alone, bit for bit)."""
+    _check("spmm_loop_plain", meta, arrays, x3d, 1, kv)
+    return _plain(meta, arrays, x3d.view(kv, meta.s_rows, LANES), 1)
+
+
+def _plain(meta, arrays: Dict, x: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` steps from the x table x (s_rows, 128), or one step from
+    the kv tables x (kv, s_rows, 128): y (n_rows,) or (kv, n_rows)."""
+    x0 = x
     for it in range(iters):
         y2 = y2_plain(meta, arrays, x)
         out = outgather_plain(arrays["resident"]["src"], arrays["out_perm"],
                               y2)
         if it + 1 < iters:
-            x = x + y2[0] * cb.TAP
+            x = x + y2[..., 0, :] * cb.TAP
     o = arrays["overflow"]
     if o is not None and o["tree_rows"].shape[0]:
-        out = out.reshape(-1)
-        out[o["tree_rows"]] = (out[o["tree_rows"]]
-                               + residue_plain(o, x2d)[o["sort_back"]])
+        flat = out.view(*out.shape[:-2], -1)
+        flat[..., o["tree_rows"]] = (
+            flat[..., o["tree_rows"]]
+            + residue_plain(o, x0)[..., o["sort_back"]])
     return _finish(meta, out)
 
 
-def residue_plain(o: Dict, x2d: torch.Tensor) -> torch.Tensor:
-    """The COO residue's row sums from the x table x2d, concatenated in
-    tree order (``sort_back`` gives a row's place), in the kernel's order:
-    a tree narrower than RES_WARP_MIN from its slot 0 over its slots in
-    order, a wider one per lane (lane i: slots i, i + 32, ...) and then
-    over the lanes by a tree; a padding slot adds the zero.  Explicit
-    loops, since a reduction's order on the CPU is not sequential."""
-    pc = torch.cat([o["vals"] * x2d.reshape(-1)[o["cols"]],
-                    x2d.new_zeros(1)])
+def residue_plain(o: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The COO residue's row sums from the x table x (s_rows, 128), or
+    each of the tables x (kv, s_rows, 128), concatenated in tree order
+    (``sort_back`` gives a row's place), in the kernel's order: a tree
+    narrower than RES_WARP_MIN from its slot 0 over its slots in order, a
+    wider one per lane (lane i: slots i, i + 32, ...) and then over the
+    lanes by a tree; a padding slot adds the zero.  Explicit loops, since
+    a reduction's order on the CPU is not sequential."""
+    lead = tuple(x.shape[:-2])
+    ax = len(lead) + 1                       # the slot axis of a tree
+    pc = torch.cat([o["vals"] * x.reshape(*lead, -1)[..., o["cols"]],
+                    x.new_zeros(lead + (1,))], -1)
     sums = []
     for t in o["trees"]:
-        p = pc[t]
+        p = pc[..., t]
         if t.shape[1] >= RES_WARP_MIN:
-            p = p.view(t.shape[0], -1, RES_LANES)
-        acc = p[:, 0]
-        for k in range(1, p.shape[1]):
-            acc = acc + p[:, k]
+            p = p.view(*lead, t.shape[0], -1, RES_LANES)
+        acc = p.select(ax, 0)
+        for k in range(1, p.shape[ax]):
+            acc = acc + p.select(ax, k)
         if t.shape[1] >= RES_WARP_MIN:
             for s_ in RES_TREE:
-                acc = acc[:, :s_] + acc[:, s_:2 * s_]
-            acc = acc[:, 0]
+                acc = acc[..., :s_] + acc[..., s_:2 * s_]
+            acc = acc[..., 0]
         sums.append(acc)
-    return torch.cat(sums)
+    return torch.cat(sums, -1)
 
 
 def y2_plain(meta, arrays: Dict, x: torch.Tensor) -> torch.Tensor:
-    """One step's y2 from the x table x: the sell rows, the long rows and
-    the zero row, (n_y2_rows + 1, 128) in x's dtype."""
-    parts = [colsum_plain(st["wins"], st["vals"], st["idx"], x, stride)
+    """One step's y2 from the x table x (s_rows, 128), or from each of the
+    tables x (kv, s_rows, 128): the sell rows, the long rows and the zero
+    row, (n_y2_rows + 1, 128) (or (kv, ...)) in x's dtype."""
+    lead = tuple(x.shape[:-2])
+    kv = lead[0] if lead else 1
+    parts = [colsum_multi_plain(st["wins"], st["vals"], st["idx"],
+                                x.reshape(-1, LANES), stride, kv
+                                ).view(*lead, -1, LANES)
              for (_, stride, _), st in zip(meta.streams, arrays["streams"])]
-    rows = [_folds_plain(meta, parts)]
+    rows = [_folds_plain(meta, parts, lead)]
     if meta.n_long:
-        rows.append(_long_rows_plain(meta, arrays["resident"], parts))
-    return torch.cat(rows + [x.new_zeros((1, LANES))])
+        rows.append(_long_rows_plain(meta, arrays["resident"], parts, lead))
+    return torch.cat(rows + [x.new_zeros(lead + (1, LANES))], -2)
 
 
-def _folds_plain(meta, parts: List[torch.Tensor]) -> torch.Tensor:
-    """The sell rows of y2 from the streams' partials: per vreg its F
-    levels in order, per chunk of VPB vregs their sums in order, per
-    slice its chunks in order."""
-    rows = [parts[0].new_zeros((0, LANES))]
+def _folds_plain(meta, parts: List[torch.Tensor], lead) -> torch.Tensor:
+    """The sell rows of y2 from the streams' partials (lead + (rows,
+    128)): per vreg its F levels in order, per chunk of VPB vregs their
+    sums in order, per slice its chunks in order."""
+    rows = [parts[0].new_zeros(lead + (0, LANES))]
     for stream, off, n_slices, w8, stride in meta.sell_segs:
         R_st = SUB // meta.streams[stream][1]
         R = SUB // stride
         F = R_st // R
-        p = parts[stream][off * R_st:(off + n_slices * w8) * R_st].view(
-            n_slices, w8, R, F, LANES)
-        lv = p[:, :, :, 0]
+        p = parts[stream][..., off * R_st:(off + n_slices * w8) * R_st,
+                          :].view(*lead, n_slices, w8, R, F, LANES)
+        lv = p[..., 0, :]                    # (..., n_slices, w8, R, 128)
         for f in range(1, F):
-            lv = lv + p[:, :, :, f]
+            lv = lv + p[..., f, :]
         y = None
         for c0 in range(0, w8, VPB):
-            c = lv[:, c0]
+            c = lv[..., c0, :, :]
             for w in range(c0 + 1, min(w8, c0 + VPB)):
-                c = c + lv[:, w]
+                c = c + lv[..., w, :, :]
             y = c if y is None else y + c
-        rows.append(y.reshape(n_slices * R, LANES))
-    return torch.cat(rows)
+        rows.append(y.reshape(*lead, n_slices * R, LANES))
+    return torch.cat(rows, -2)
 
 
-def _long_rows_plain(meta, res: Dict,
-                     parts: List[torch.Tensor]) -> torch.Tensor:
+def _long_rows_plain(meta, res: Dict, parts: List[torch.Tensor],
+                     lead) -> torch.Tensor:
     """The long rows of y2: per-vreg totals of the long streams, the
     scalars as multiplicity-weighted sums of totals, packed LONG_PACK to a
-    row with lane 127 zero."""
+    row with lane 127 zero (lead + (n_long_rows, 128))."""
     tots = []
     for s in res["long_streams"]:
         _, stride, nv = meta.streams[s]
-        c = parts[s].view(nv, SUB // stride, LANES)
-        acc = c[:, 0]
-        for r in range(1, c.shape[1]):
-            acc = acc + c[:, r]
+        c = parts[s].view(*lead, nv, SUB // stride, LANES)
+        acc = c[..., 0, :]
+        for r in range(1, c.shape[-2]):
+            acc = acc + c[..., r, :]
         for s_ in TREE:
-            acc = acc[:, :s_] + acc[:, s_:2 * s_]
-        tots.append(acc[:, 0])
-    T = torch.cat(tots + [parts[0].new_zeros(1)])
+            acc = acc[..., :s_] + acc[..., s_:2 * s_]
+        tots.append(acc[..., 0])
+    T = torch.cat(tots + [parts[0].new_zeros(lead + (1,))], -1)
     ti, m = res["inc_pad_t"], res["inc_pad_m"].to(T.dtype)
-    acc = m[:, 0] * T[ti[:, 0]]
+    acc = m[:, 0] * T[..., ti[:, 0]]
     for c in range(1, ti.shape[1]):
-        acc = acc + m[:, c] * T[ti[:, c]]
-    rows = T.new_zeros(meta.n_long_rows * LONG_PACK)
-    rows[:meta.n_long] = acc
+        acc = acc + m[:, c] * T[..., ti[:, c]]
+    rows = T.new_zeros(lead + (meta.n_long_rows * LONG_PACK,))
+    rows[..., :meta.n_long] = acc
     return torch.nn.functional.pad(
-        rows.view(meta.n_long_rows, LONG_PACK), (0, LANES - LONG_PACK))
+        rows.view(*lead, meta.n_long_rows, LONG_PACK), (0, LANES - LONG_PACK))
 
 
 def _finish(meta, out: torch.Tensor) -> torch.Tensor:
-    """The last step's out (its residue added) -> y: the first n_rows
-    words; bf16 plans round y once (one torch op on the card)."""
-    return cb._narrow(meta, out.reshape(-1)[:meta.n_rows])
+    """The last step's out (B_pad, 128), or the (kv, B_pad, 128) of a pass
+    (its residue added) -> y: the first n_rows words of each; bf16 plans
+    round y once (one torch op on the card)."""
+    return cb._narrow(meta, out.reshape(*out.shape[:-2], -1)[
+        ..., :meta.n_rows])

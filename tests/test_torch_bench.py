@@ -136,12 +136,16 @@ def test_bench_spmv_divides_by_the_spmvs_the_loop_runs(resident):
     assert res.seconds_per_iter == pytest.approx(op.PER, rel=0.1)
 
 
-def test_time_adaptive_lengthens_short_steps():
+def test_time_adaptive_lengthens_short_steps(monkeypatch):
+    """The search on a deterministic clock: the runner reads a step of k
+    units as k * 0.2 ms (what the step returns), so no assertion depends
+    on the host's load."""
     seen = []
 
     def make(k):
         seen.append(k)
-        return lambda: time.sleep(k * 2e-4)
+        return lambda: k * 2e-4
+    monkeypatch.setattr(harness, "_runner", lambda step, device: step)
     med, spread, n, setup = harness.time_adaptive(make, "cpu", 1, 64,
                                                   trials=3)
     assert seen[0] == 1 and seen == sorted(seen) and n == seen[-1]
@@ -149,9 +153,10 @@ def test_time_adaptive_lengthens_short_steps():
     assert all(b >= 2 * a for a, b in zip(search, search[1:]))
     # the search's last step is trial 1; the other trials are made anew
     assert seen.count(n) == 3 and len(seen) == len(search) + 2
-    assert med >= harness.MIN_REPLAY_SECONDS and n <= 64 and setup > 0
+    assert med >= harness.MIN_REPLAY_SECONDS and n <= 64 and setup >= 0
+    assert med == pytest.approx(n * 2e-4) and spread == 0
     # the cap ends the search whatever the step lasts
-    assert harness.time_adaptive(lambda k: (lambda: None), "cpu", 1, 8,
+    assert harness.time_adaptive(lambda k: (lambda: 1e-6), "cpu", 1, 8,
                                  trials=2)[2] == 8
 
 

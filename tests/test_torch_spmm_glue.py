@@ -1,20 +1,22 @@
-"""The batched glue of an SpMM pass (``cuda_backend.spmm_fn``: one K5
+"""The batched glue of an SpMM pass on tables without a K6 schedule
+(``cuda_backend.spmm_fn`` on ``dict(op._arrays, resident=None)``: one K5
 launch per stream, then ``stack_y2`` / ``_assemble_y`` once with the
 vector as a batch dimension, one outgather, the residue sub-plan as an
 SpMM) on fixtures that reach every branch of it, in f32, bf16 and f64:
 against the reference-order single-vector SpMV per vector (``spmv_fn`` on
-the tables without their K6 schedule: K1/K3, the same glue, K2/K4),
+the same tables: K1/K3, the same glue, K2/K4).  ``matmat`` on the
+scheduled tables (one K6 launch a pass, tests/test_torch_spmm_resident.py)
 against the one-step K6 SpMV that ``op(x)`` runs, against
 ``PallasSpMV.matmat`` (``force_streamed=True``) and against the CSR
 golden.
 
 Tolerances, on the error scaled by max(|ref|, 1):
-- a column against the reference-order ``spmv_fn`` on its own table:
-  equal, bit for bit.  The batched reductions run on contiguous (kv,
-  rows, 128) partials and give each vector the sums, in the order, that
-  the single-vector call gives;
-- ``op(x)`` (one K6 step, which folds in K6's order and sums the residue
-  by trees) against the golden, as matmat is;
+- a glue column against the reference-order ``spmv_fn`` on its own
+  table: equal, bit for bit.  The batched reductions run on contiguous
+  (kv, rows, 128) partials and give each vector the sums, in the order,
+  that the single-vector call gives;
+- a matmat column against ``op(x)`` on it (one K6 step, which folds in
+  K6's order and sums the residue by trees): equal, bit for bit;
 - a column against itself when its neighbours and the zero padding
   change: equal, bit for bit (a column depends on no other);
 - matmat against the golden: f32 2e-5 and f64 1e-10; bf16 1e-2 against
@@ -41,6 +43,7 @@ from dasp_tpu_torch import sparse as tsp
 from dasp_tpu_torch.config import DaspConfig
 from dasp_tpu_torch.ops import cuda_backend as cb
 from dasp_tpu_torch.ops import outgather as og
+from dasp_tpu_torch.ops import resident
 from dasp_tpu_torch.io.build import ensure_built
 
 torch.set_num_threads(1)
@@ -107,15 +110,15 @@ def _close(Y, G, tol, scale=None):
                                rtol=0, atol=tol)
 
 
+def _glue(op):
+    """The operator's tables without their K6 schedule: the glue path."""
+    return dict(op._arrays, resident=None)
+
+
 def _glue_call(op, x2d):
     """The reference-order single-vector SpMV: ``spmv_fn`` on the
     operator's tables without their K6 schedule."""
-    return cb.spmv_fn(op._meta, dict(op._arrays, resident=None), x2d)
-
-
-def _glue_host(op, x):
-    """``_glue_call`` on host x, in original row order (as ``op(x)``)."""
-    return op.perm_out(cb._to_host(_glue_call(op, op._prep_x(x))))
+    return cb.spmv_fn(op._meta, _glue(op), x2d)
 
 
 def _check_golden(csr, X, Y, dtype):
@@ -154,23 +157,24 @@ def test_glue_fixture_reaches_its_branch(name, monkeypatch):
 @pytest.mark.parametrize("name", list(GLUE_CASES))
 def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
                                                     monkeypatch):
-    """One batched pass per fixture and dtype: each column equals the
-    reference-order spmv_fn on its table bit for bit, matmat and op(x)
-    (one K6 step) match the golden, and matmat PallasSpMV.matmat (5
-    columns: one pass of 8, padded)."""
+    """One batched glue pass per fixture and dtype: each column equals
+    the reference-order spmv_fn on its table bit for bit; matmat (one K6
+    launch a pass) equals op(x) (one K6 step) column for column bit for
+    bit, and both match the golden and PallasSpMV.matmat (5 columns: one
+    pass of 8, padded)."""
     rng = np.random.default_rng(0)
     csr, op = _operator(name, dtype, monkeypatch, rng)
     X = rng.standard_normal((csr.n_cols, 5))
     kv = 4
     xs = [op._prep_x(X[:, j]) for j in range(kv)]
-    Y4 = cb.spmm_fn(op._meta, op._arrays, torch.cat(xs), kv)
+    Y4 = cb.spmm_fn(op._meta, _glue(op), torch.cat(xs), kv)
     assert Y4.shape == (kv, csr.n_rows)
     for j, x2d in enumerate(xs):
         assert torch.equal(Y4[j], _glue_call(op, x2d)), j
     Y = op.matmat(X)
     assert Y.shape == (csr.n_rows, 5) and Y.dtype == np.float64
     for j in range(5):
-        np.testing.assert_array_equal(Y[:, j], _glue_host(op, X[:, j]))
+        np.testing.assert_array_equal(Y[:, j], op(X[:, j]))
     _check_golden(csr, X, Y, dtype)
     _check_golden(csr, X, np.stack([op(X[:, j]) for j in range(5)], 1),
                   dtype)
@@ -183,9 +187,8 @@ def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 def test_matmat_column_counts(dtype, k):
     """k = 1, 5, 8 and 11 columns (a pass of kv = 1; a padded pass of 8;
-    a full one; a full one and a padded pass of 4): every column is the
-    reference-order single-vector SpMV, bit for bit, and op(x) (one K6
-    step) matches the golden as the columns do."""
+    a full one; a full one and a padded pass of 4): every column is op(x)
+    (one K6 step) on it, bit for bit, and matches the golden."""
     rng = np.random.default_rng(0)
     csr = tsp.mixed_categories(300, rng)
     op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
@@ -194,7 +197,7 @@ def test_matmat_column_counts(dtype, k):
     assert Y.shape == (csr.n_rows, k)
     _check_golden(csr, X, Y, dtype)
     for j in range(k):
-        np.testing.assert_array_equal(Y[:, j], _glue_host(op, X[:, j]))
+        np.testing.assert_array_equal(Y[:, j], op(X[:, j]))
     _check_golden(csr, X, np.stack([op(X[:, j]) for j in range(k)], 1),
                   dtype)
 
@@ -202,10 +205,10 @@ def test_matmat_column_counts(dtype, k):
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 @pytest.mark.parametrize("name", ["mixed", "scatter", "route", "subplan"])
 def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
-    """Column j of a pass does not change, bit for bit, when the other
-    columns change (to other vectors, to zero padding), at kv = 4 and 8;
-    it is the reference-order spmv_fn on its table, and op(x) (one K6
-    step) matches the golden."""
+    """Column j of a glue pass (the tables without their K6 schedule)
+    does not change, bit for bit, when the other columns change (to other
+    vectors, to zero padding), at kv = 4 and 8; it is the reference-order
+    spmv_fn on its table, and op(x) (one K6 step) matches the golden."""
     rng = np.random.default_rng(0)
     csr, op = _operator(name, dtype, monkeypatch, rng)
     xh = rng.standard_normal(csr.n_cols)
@@ -219,7 +222,7 @@ def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
                     xb.copy_(torch.from_numpy(
                         rng.standard_normal(tuple(xb.shape))))
                 xb[j] = x
-                y = cb.spmm_fn(op._meta, op._arrays, xb.view(-1, 128),
+                y = cb.spmm_fn(op._meta, _glue(op), xb.view(-1, 128),
                                kv)[j]
                 want = y if want is None else want
                 assert torch.equal(y, want), (kv, j, fill)
@@ -229,29 +232,42 @@ def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_matmat_subplan_runs_no_single_vector_colsum(dtype, monkeypatch):
-    """A pass runs the residue sub-plan through the multi-vector colsum
-    too: matmat calls the single-vector colsum not at all, and the
-    multi-vector one once per stream of the plan and of its sub-plan per
-    pass."""
+    """On a plan whose residue is repacked as a sub-plan, a matmat pass
+    is one fused K6 pass (``resident.spmm_loop``, whose trees sum the whole
+    residue) and calls no colsum and no outgather; on the same tables
+    without their schedule a glue pass runs the sub-plan through the
+    multi-vector colsum too: once per stream of the plan and of its
+    sub-plan, and the single-vector colsum not at all."""
     rng = np.random.default_rng(0)
     csr, op = _operator("subplan", dtype, monkeypatch, rng)
-    calls = {"single": 0, "multi": 0}
+    calls = dict.fromkeys(("single", "multi", "outgather", "fused"), 0)
 
     def counted(fn, key):
-        def run(*args):
+        def run(*args, **kw):
             calls[key] += 1
-            return fn(*args)
+            return fn(*args, **kw)
         return run
     monkeypatch.setattr(cb, "colsum", counted(cb.colsum, "single"))
     monkeypatch.setattr(cb, "colsum_multi",
                         counted(cb.colsum_multi, "multi"))
+    monkeypatch.setattr(cb, "outgather", counted(cb.outgather, "outgather"))
+    monkeypatch.setattr(resident, "spmm_loop",
+                        counted(resident.spmm_loop, "fused"))
     X = rng.standard_normal((csr.n_cols, 5))
     Y = op.matmat(X)
     passes = -(-5 // cb.KV_SPMM)
     assert passes == 1
-    streams = len(op._meta.streams) + len(op._meta.res.streams)
-    assert calls == {"single": 0, "multi": passes * streams}
+    assert calls == {"single": 0, "multi": 0, "outgather": 0,
+                     "fused": passes}
     _check_golden(csr, X, Y, dtype)
+    calls.update(fused=0)
+    Xp = np.pad(X, ((0, 0), (0, cb.KV_SPMM - 5)))     # zero padding
+    x3d = torch.cat([op._prep_x(Xp[:, j]) for j in range(cb.KV_SPMM)])
+    Yg = cb.spmm_fn(op._meta, _glue(op), x3d)
+    streams = len(op._meta.streams) + len(op._meta.res.streams)
+    assert calls == {"single": 0, "multi": streams, "outgather": 2,
+                     "fused": 0}
+    _check_golden(csr, X, op.perm_out(cb._to_host(Yg).T)[:, :5], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
