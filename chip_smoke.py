@@ -701,26 +701,23 @@ def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
     """K6's SpMM pass at kv = 2, 4, 8 on the first kv of ``tabs``:
     ALONE_REPS passes in one graph, its plain version, the bytes a pass
     must move (A's tables once, each x table and each output once) and
-    its bound, and one cuSPARSE A @ X of the same columns; a [time] line
-    each, and each instance's row of the kernels line in ``alone``."""
+    its bound, and one cuSPARSE A @ X of the same columns (the bench's
+    baseline: for bf16 a bf16 CSR product where this build has one, else
+    f32 on the bf16-rounded values); a [time] line each, and each
+    instance's row of the kernels line in ``alone``."""
     import torch
-    from dasp_tpu_torch.bench.baselines import cusparse_matrix
+    from dasp_tpu_torch.bench.baselines import TORCH_DTYPE, CuSparseBaseline
     from dasp_tpu_torch.ops.resident import spmm_loop, spmm_loop_plain
     meta, arrays, d = op._meta, op._arrays, op.dtype
-    A = None
-    if d != "bf16":
-        A, vdt = cusparse_matrix(csr, d, tabs[0].device)
+    base = CuSparseBaseline(csr, d, tabs[0].device)
+    A, vdt = base.mat, TORCH_DTYPE[base.compute_dtype]
     for kv in SPMM_KV:
         x3d = multi_x(tabs[:kv])
         ms = time_ms(graphed(lambda: spmm_loop(meta, arrays, x3d, kv),
                              ALONE_REPS), 5) / ALONE_REPS
         plain = time_ms(lambda: spmm_loop_plain(meta, arrays, x3d, kv), 2)
-        lib = None
-        if A is not None:
-            Xd = torch.randn((csr.n_cols, kv), dtype=vdt,
-                             device=x3d.device)
-            lib = time_ms(graphed(lambda: A @ Xd, ALONE_REPS),
-                          5) / ALONE_REPS
+        Xd = torch.randn((csr.n_cols, kv), dtype=vdt, device=x3d.device)
+        lib = time_ms(graphed(lambda: A @ Xd, ALONE_REPS), 5) / ALONE_REPS
         nbytes = resident_bytes(op, kv)[1]
         b_ms, b_by = bound(nbytes, kv * 2 * csr.nnz, d)
         k = f"{inst('resident', d)}_kv{kv}"
@@ -728,9 +725,8 @@ def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
         log(f"[time] {k} alone at {csr.n_rows}x{csr.n_cols} (graph replay, "
             f"{ALONE_REPS} passes a graph): a pass of {kv} {ms * 1e3:.2f} us "
             f"({ms * 1e3 / kv:.2f} a column), plain {plain * 1e3:.1f} us; "
-            f"cuSPARSE A @ X[:, :{kv}] "
-            + (f"{lib * 1e3:.2f} us" if lib else "none (bf16)")
-            + f"; must move {nbytes / 1e6:.2f} MB = "
+            f"cuSPARSE A @ X[:, :{kv}] ({base.compute_dtype}) "
+            f"{lib * 1e3:.2f} us; must move {nbytes / 1e6:.2f} MB = "
             f"{nbytes / (ms * 1e6):.0f} GB/s, "
             f"{nbytes / (ms * 1e6) / copy_gbs:.1%} of the copy rate; bound "
             f"{b_ms * 1e3:.2f} us ({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
@@ -1654,14 +1650,16 @@ def main():
         note(errs)
         note({k: v for k, v in compare_kernels(
             op, rand_tables(op, 5, 4)).items() if "multi" in k})
-        note({f"{inst('resident', d)}_kv{cb.KV_SPMM}":
-              compare_spmm(op, rand_tables(op, 5))})
+        for kv in SPMM_KV:
+            note({f"{inst('resident', d)}_kv{kv}":
+                  compare_spmm(op, rand_tables(op, 5, kv))})
         log(f"[kernels] {name} {d}: " + ", ".join(
             f"{k} {s:.3e} scaled ({a:.3e} abs)"
             for k, (s, a) in errs.items())
             + f", limit {KERNEL_TOL[d]}; K5 also at kv = 4; K6's SpMM pass "
-            f"of {cb.KV_SPMM} == its plain version and each column == one "
-            f"K6 step, bit for bit; {time.perf_counter() - t:.2f} s")
+            f"at kv = {list(SPMM_KV)}: y and y2 == its plain version and "
+            f"each column == one K6 step, bit for bit; "
+            f"{time.perf_counter() - t:.2f} s")
     for (name, d), rop in rops.items():
         x2d = rop._prep_x(xs[name])
         e = compare_resident(rop, x2d)

@@ -58,6 +58,9 @@
 // own so that resident_kernel's code stays as it was: one kernel
 // templated on KV moved the one-table build's register allocation (8 -> 0
 // local bytes) and made its f32 and bf16 steps 1-3 % slower (PERF.md §6).
+// The two kernels share phase A's colsum (colsum_fold, XI = 1 in a step)
+// and the residue's sums (residue_sums, KV = 1 in a step); so shared,
+// resident_kernel's SASS is the same as with copies of its own.
 // The phase clock is compiled only at KV = 1 and at KV_CLOCK.  What bounds
 // a pass is phase A's chain of dependent loads, as for a step: with one
 // table's 8 gathers a thread in flight, A at KV = 8 took 3x K5's read of
@@ -341,80 +344,17 @@ __device__ __forceinline__ void stage_item(Stage<V>& st, const int32_t* items,
 }
 
 // one vreg's colsum (K1's body) from its staged operands, for the COLS
-// lane columns j + c * TW of the thread: R = 8/STRIDE level sums a column
-// in registers; then its R/F folded levels lv[c] and its lane sum ls[c]
-template <typename V, typename A, int COLS, int STRIDE, int F>
+// lane columns j + c * TW of the thread and the XI x tables x, x + xs, ...
+// (an SpMM pass's; XI = 1 for a step), their gathers in flight together:
+// R = 8/STRIDE level sums a column and table in registers; then table u's
+// R/F folded levels lv[u][c] and its lane sum ls[u][c]
+template <typename V, typename A, int COLS, int STRIDE, int F, int XI>
 __device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
                                             const int32_t* w, int P,
                                             const V (*vals)[LANES],
-                                            const A* x, int j,
-                                            A (&lv)[COLS][MAX_R],
-                                            A (&ls)[COLS]) {
-  constexpr int R = SUB / STRIDE;
-  constexpr int TW = LANES / COLS;
-  A acc[COLS][R];
-#pragma unroll
-  for (int c = 0; c < COLS; ++c)
-#pragma unroll
-    for (int L = 0; L < R; ++L) acc[c][L] = A(0);
-#pragma unroll
-  for (int i = 0; i < SUB; ++i) {
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int jc = j + c * TW;
-      const int lam = (int)tile[i][jc] & 127;
-      const A xv = x[x_row(tile[i], lam, w, P) * LANES + lam];
-      acc[c][i / STRIDE] =
-          add_rn(acc[c][i / STRIDE], mul_rn(widen(vals[i][jc]), xv));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    ls[c] = acc[c][0];
-#pragma unroll
-    for (int L = 1; L < R; ++L) ls[c] = add_rn(ls[c], acc[c][L]);
-#pragma unroll
-    for (int r = 0; r < R / F; ++r) {
-      lv[c][r] = acc[c][r * F];
-#pragma unroll
-      for (int f = 1; f < F; ++f)
-        lv[c][r] = add_rn(lv[c][r], acc[c][r * F + f]);
-    }
-  }
-}
-
-template <typename V, typename A, int COLS>
-__device__ __forceinline__ void colsum_item(int stride, int F,
-                                            const int16_t (*tile)[LANES],
-                                            const int32_t* w, int P,
-                                            const V (*vals)[LANES],
-                                            const A* x, int j,
-                                            A (&lv)[COLS][MAX_R],
-                                            A (&ls)[COLS]) {
-  if (stride == 8) {
-    colsum_fold<V, A, COLS, 8, 1>(tile, w, P, vals, x, j, lv, ls);
-  } else if (stride == 4) {
-    if (F == 2) colsum_fold<V, A, COLS, 4, 2>(tile, w, P, vals, x, j, lv, ls);
-    else        colsum_fold<V, A, COLS, 4, 1>(tile, w, P, vals, x, j, lv, ls);
-  } else {
-    if (F == 4) colsum_fold<V, A, COLS, 2, 4>(tile, w, P, vals, x, j, lv, ls);
-    else if (F == 2)
-      colsum_fold<V, A, COLS, 2, 2>(tile, w, P, vals, x, j, lv, ls);
-    else
-      colsum_fold<V, A, COLS, 2, 1>(tile, w, P, vals, x, j, lv, ls);
-  }
-}
-
-// colsum_fold for the XI x tables x, x + xs, ... of an SpMM pass, their
-// gathers in flight together: the folded levels lv[u][c] and lane sum
-// ls[u][c] of table u
-template <typename V, typename A, int COLS, int STRIDE, int F, int XI>
-__device__ __forceinline__ void colsum_tables(const int16_t (*tile)[LANES],
-                                              const int32_t* w, int P,
-                                              const V (*vals)[LANES],
-                                              const A* x, int64_t xs, int j,
-                                              A (&lv)[XI][COLS][MAX_R],
-                                              A (&ls)[XI][COLS]) {
+                                            const A* x, int64_t xs, int j,
+                                            A (&lv)[XI][COLS][MAX_R],
+                                            A (&ls)[XI][COLS]) {
   constexpr int R = SUB / STRIDE;
   constexpr int TW = LANES / COLS;
   A acc[XI][COLS][R];
@@ -457,78 +397,42 @@ __device__ __forceinline__ void colsum_tables(const int16_t (*tile)[LANES],
 }
 
 template <typename V, typename A, int COLS, int XI>
-__device__ __forceinline__ void colsum_item_tables(
+__device__ __forceinline__ void colsum_item(
     int stride, int F, const int16_t (*tile)[LANES], const int32_t* w, int P,
     const V (*vals)[LANES], const A* x, int64_t xs, int j,
     A (&lv)[XI][COLS][MAX_R], A (&ls)[XI][COLS]) {
   if (stride == 8) {
-    colsum_tables<V, A, COLS, 8, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+    colsum_fold<V, A, COLS, 8, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
   } else if (stride == 4) {
     if (F == 2)
-      colsum_tables<V, A, COLS, 4, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 4, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
     else
-      colsum_tables<V, A, COLS, 4, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 4, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
   } else {
     if (F == 4)
-      colsum_tables<V, A, COLS, 2, 4, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 4, XI>(tile, w, P, vals, x, xs, j, lv, ls);
     else if (F == 2)
-      colsum_tables<V, A, COLS, 2, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
     else
-      colsum_tables<V, A, COLS, 2, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
   }
 }
 
-// The COO residue's row sums from the caller's x, a warp per task of
-// the residue schedule (warp `warp` of `warps`, counted from the grid's
-// last warp, whose blocks hold the cheapest items), into rsum.
-template <typename A>
-__device__ __forceinline__ void residue_sums(const Params<A>& p,
-                                             int64_t warp, int64_t warps,
-                                             int lane) {
-  for (int64_t k = warps - 1 - warp; k < p.n_res_tasks; k += warps) {
-    const int32_t* task = p.res_task + k * NTASK;
-    const int64_t e0 = task[T_FIRST];
-    const int32_t* e = p.res_ent + e0 * NRES;
-    if (e[R_W] >= RES_WARP_MIN) {          // one wide row for the warp
-      const int64_t s0 = e[R_SLOT];
-      const int L = e[R_LEN], w = e[R_W];
-      A acc = A(0);
-      for (int k2 = lane; k2 < w; k2 += WARP) {
-        const A v = k2 < L ? mul_rn(p.res_vals[s0 + k2],
-                                    p.x[p.res_cols[s0 + k2]])
-                           : A(0);
-        acc = k2 == lane ? v : add_rn(acc, v);
-      }
-#pragma unroll
-      for (int s = WARP / 2; s > 0; s >>= 1)
-        acc = add_rn(acc, __shfl_down_sync(0xffffffffu, acc, s));
-      if (lane == 0) p.rsum[e0] = acc;
-    } else if (lane < task[T_N]) {          // a row a lane
-      const int32_t* el = e + (int64_t)lane * NRES;
-      const int64_t s0 = el[R_SLOT];
-      const int L = el[R_LEN], w = el[R_W];
-      A acc = mul_rn(p.res_vals[s0], p.x[p.res_cols[s0]]);
-      for (int k2 = 1; k2 < L; ++k2)
-        acc = add_rn(acc, mul_rn(p.res_vals[s0 + k2],
-                                 p.x[p.res_cols[s0 + k2]]));
-      if (w > L) acc = add_rn(acc, A(0));  // the padding slots' zeros
-      p.rsum[e0 + lane] = acc;
-    }
-  }
-}
-
-// residue_sums for the KV x tables of an SpMM pass: a warp per task and
-// table, the KV tables of a task on neighbouring warps
+// The COO residue's row sums from the KV x tables x, x + x_words, ...
+// (an SpMM pass's; KV = 1 for a step) into rsum, rsum + rsum_vs, ...: a
+// warp per task and table (warp `warp` of `warps`, counted from the
+// grid's last warp, whose blocks hold the cheapest items), the KV tables
+// of a task on neighbouring warps
 template <typename A, int KV>
-__device__ __forceinline__ void residue_sums_tables(const PassParams<A>& p,
-                                                    int64_t warp,
-                                                    int64_t warps, int lane) {
+__device__ __forceinline__ void residue_sums(const Params<A>& p,
+                                             int64_t rsum_vs, int64_t warp,
+                                             int64_t warps, int lane) {
   for (int64_t k = warps - 1 - warp; k < (int64_t)p.n_res_tasks * KV;
        k += warps) {
     const int32_t* task = p.res_task + (k / KV) * NTASK;
     const int64_t tab = k % KV;            // the x table
     const A* x = p.x + tab * p.x_words;
-    A* rsum = p.rsum + tab * p.rsum_vs;
+    A* rsum = p.rsum + tab * rsum_vs;
     const int64_t e0 = task[T_FIRST];
     const int32_t* e = p.res_ent + e0 * NRES;
     if (e[R_W] >= RES_WARP_MIN) {          // one wide row for the warp
@@ -617,30 +521,31 @@ resident_kernel(Params<A> p) {
       const bool total = (item[I_MASK] >> t) & 1;
       A* const o = item[I_DST] == DST_Y2 ? p.y2 : p.cbuf;
       const int64_t out0 = item[I_OUT];
-      A lv[S::COLS][MAX_R], ls[S::COLS];
+      A lv[1][S::COLS][MAX_R], ls[1][S::COLS];
 #pragma unroll
       for (int c = 0; c < S::COLS; ++c) {
-        ls[c] = A(0);
+        ls[0][c] = A(0);
 #pragma unroll
-        for (int r = 0; r < MAX_R; ++r) lv[c][r] = A(0);
+        for (int r = 0; r < MAX_R; ++r) lv[0][c][r] = A(0);
       }
       if (live) {
-        colsum_item<V, A, S::COLS>((int)d[D_STRIDE], item[I_F], st.tile[t],
-                                   &st.wins[t][1], (int)d[D_P], st.vals[t],
-                                   x, j, lv, ls);
+        colsum_item<V, A, S::COLS, 1>((int)d[D_STRIDE], item[I_F],
+                                      st.tile[t], &st.wins[t][1], (int)d[D_P],
+                                      st.vals[t], x, 0, j, lv, ls);
 #pragma unroll
         for (int c = 0; c < S::COLS; ++c) {
           const int jc = j + c * TW;
           if (w8 == 1 && item[I_DST] != DST_NONE) {
 #pragma unroll
             for (int r = 0; r < MAX_R; ++r)
-              if (r < R) o[(out0 + (int64_t)t * R + r) * LANES + jc] = lv[c][r];
+              if (r < R)
+                o[(out0 + (int64_t)t * R + r) * LANES + jc] = lv[0][c][r];
           } else if (w8 > 1) {
 #pragma unroll
             for (int r = 0; r < MAX_R; ++r)
-              if (r < R) red[t][r][jc] = lv[c][r];
+              if (r < R) red[t][r][jc] = lv[0][c][r];
           }
-          if (total) lsum[t][jc] = ls[c];
+          if (total) lsum[t][jc] = ls[0][c];
         }
       }
       __syncthreads();
@@ -685,8 +590,8 @@ resident_kernel(Params<A> p) {
       clock.lap(S_A);
     }
     if (it == 0)
-      residue_sums(p, row * (TW / WARP) + j / WARP, rows * (TW / WARP),
-                   j % WARP);
+      residue_sums<A, 1>(p, 0, row * (TW / WARP) + j / WARP,
+                         rows * (TW / WARP), j % WARP);
     grid.sync();
     clock.lap(res_lap ? S_R : S_A);
 
@@ -858,7 +763,7 @@ spmm_kernel(PassParams<A> p) {
           for (int r = 0; r < MAX_R; ++r) lv[u][c][r] = A(0);
         }
       if (live)
-        colsum_item_tables<V, A, S::COLS, XN>(
+        colsum_item<V, A, S::COLS, XN>(
             (int)d[D_STRIDE], item[I_F], st.tile[t], &st.wins[t][1],
             (int)d[D_P], st.vals[t], p.x + v0 * p.x_words, p.x_words, j, lv,
             ls);
@@ -921,8 +826,8 @@ spmm_kernel(PassParams<A> p) {
     grid.sync();
     clock.lap(S_A);
   }
-  residue_sums_tables<A, KV>(p, row * (TW / WARP) + j / WARP,
-                             rows * (TW / WARP), j % WARP);
+  residue_sums<A, KV>(p, p.rsum_vs, row * (TW / WARP) + j / WARP,
+                      rows * (TW / WARP), j % WARP);
   grid.sync();
   clock.lap(res_lap ? S_R : S_A);
 

@@ -139,8 +139,6 @@ RES_TREE = (16, 8, 4, 2, 1)     # lane-tree steps of a wide residue row
 # tap), the grid and blocks per SM
 STAMPS = ("A", "R", "C", "D", "grid", "per_sm")
 STAMP_WORDS = len(STAMPS)
-CLOCK_KV = (1, 8)   # x tables a launch with the clock may have (the builds
-                    # with the clock compiled in)
 
 
 def eligible(meta) -> bool:
@@ -505,11 +503,11 @@ def _check(fn: str, meta, arrays: Dict, x: torch.Tensor, iters,
     if stamps is not None and (
             stamps.device != x.device or x.device.type != "cuda"
             or stamps.dtype != torch.int64
-            or tuple(stamps.shape) != (STAMP_WORDS,) or kv not in CLOCK_KV):
+            or tuple(stamps.shape) != (STAMP_WORDS,)):
         raise ValueError(f"{fn}: stamps must be an int64 ({STAMP_WORDS},) "
-                         f"tensor on x's CUDA device, at kv in {CLOCK_KV}, "
-                         f"got {stamps.dtype} {tuple(stamps.shape)} on "
-                         f"{stamps.device} (x on {x.device}, kv {kv})")
+                         f"tensor on x's CUDA device, got {stamps.dtype} "
+                         f"{tuple(stamps.shape)} on {stamps.device} (x on "
+                         f"{x.device})")
     return meta.dtype
 
 
@@ -576,12 +574,13 @@ def launch_entry(fn, entry: str, meta, arrays: Dict, x: torch.Tensor,
     """Allocate K6's buffers on x's device, one set per x table, and
     launch the C entry point ``fn`` (named ``entry``, with
     ``_build.SIGNATURES["dasp_resident_f32"]``'s arguments) for the kv
-    tables of x; return the last step's y2 and out ((kv, ...) at kv > 1).
-    Checks the call as ``resident_loop`` does and raises if the launch is
-    refused.  It counts no launch: ``resident_loop`` and ``spmm_loop`` do,
+    tables of x, on a call that ``_check`` has passed; return the last
+    step's y2 and out ((kv, ...) at kv > 1).  Raises if the launch is
+    refused (the launcher refuses kv, iters and x_scr that do not fit the
+    entry, and ``stamps`` where the entry has no clock: kv other than 1
+    and 8).  It counts no launch: ``resident_loop`` and ``spmm_loop`` do,
     and probes/k6_levers.py launches its own builds of the kernel through
     it."""
-    _check(entry, meta, arrays, x, iters, kv, stamps)
     res = arrays["resident"]
     dev, dt = x.device, x.dtype
     lead = (kv,) if kv > 1 else ()
