@@ -20,9 +20,10 @@ Phases, one or more printed lines each, every one raising on failure:
      the same tensors (K1/K3 bit for bit), each K5 slice against K1 / K3
      on its own x, each vector of the batched outgather against
      outgather_plain on its y2, and K6 in f32, bf16 and f64 at 1 and 3
-     steps, and K6's SpMM pass at kv = 2, 4, 8 (y and y2 against its
-     plain version, each column against one K6 step on its table), all
-     bit for bit; the registers, local bytes, shared bytes and
+     steps, and K6's SpMM pass at kv = 2, 4, 8 on its x tables
+     interleaved by column (Y (n_rows, kv) and y2 against its plain
+     version, each column against one K6 step on its table), all bit for
+     bit; the registers, local bytes, shared bytes and
      blocks a SM of every K5 instance (the kv = 1 ones again on a [build]
      K1 line: they are K1/K3), of the T1 bodies and of the T2/T3
      instances phase 6 launches are printed after the build, and K6's
@@ -47,7 +48,7 @@ Phases, one or more printed lines each, every one raising on failure:
      nothing else (checked also on a fixture whose residue is repacked as
      a sub-plan, which the pass sums by its trees); then every instance
      against its plain version at these shapes (K5 at kv = 4 and 8, the
-     SpMM pass at kv = 8); then, on counts of their own, K1/K3, K5 and
+     SpMM pass at kv = 2, 4 and 8); then, on counts of their own, K1/K3, K5 and
      K2/K4 on the glue path (the same tables without the K6 schedule,
      where they still run): the reference-order single-vector SpMV,
      exactly one K1/K3 a stream and one K2/K4 a plan a call, and an SpMM
@@ -66,7 +67,8 @@ Phases, one or more printed lines each, every one raising on failure:
      (one K6 SpMM pass of 8; on the glue path two K5 passes of 4 and one
      pass of 8) against 8 single SpMVs and cuSPARSE A @ X, per call and
      per column, in f32, f64 and bf16, with the device kernels of one
-     pass (K6's and the glue's) and of one SpMV (the port's and the
+     pass (K6's, which must be K6 alone in every dtype: bf16's Y is
+     rounded inside it; and the glue's) and of one SpMV (the port's and the
      others, from the profiler), the K6 pass's phase clock at kv = 8 (a
      [phase] line), and the device kernels of a streamed SpMV
      (one K6 step, the chain's tap ops, bf16's rounding); the one-step
@@ -105,9 +107,10 @@ Phases, one or more printed lines each, every one raising on failure:
      chain's step ([time] rmat_like ... one device_call); K1/K3 on its
      streams, which exceed the L2 in every dtype, are held to
      colsum_plain bit for bit and timed alone, with their share of the
-     bound; K6's SpMM pass of 8 on scircuit_like, rmat_like and the wide
-     matrix gets its phase clock and its time beside cuSPARSE A @ X (a
-     [phase] line each).
+     bound; K6's SpMM pass of 8 on scircuit_like, rmat_like, the wide
+     matrix and uniform_medium (generated for this line alone) gets its
+     phase clock, its time beside cuSPARSE A @ X and its bound (a [phase]
+     line each).
      Every arm passes the bench's checks (streamed y, resident loop y,
      each matmat column and cuSPARSE against the f64 CSR golden), writes
      its resident, streamed and SpMM rows under the reference's header,
@@ -321,7 +324,7 @@ def kernel_args(op, xs):
     cs = [(st["wins"], st["vals"], st["idx"], xs[0], s)
           for (_, s, _), st in zip(meta.streams, arrays["streams"])]
     y2, _ = cb.stack_y2(meta, arrays, [colsum(*a) for a in cs], xs[0])
-    x3d = multi_x(xs)
+    x3d = stacked_x(xs)
     cm = [(st["wins"], st["vals"], st["idx"], x3d, s, len(xs))
           for (_, s, _), st in zip(meta.streams, arrays["streams"])]
     return cs, (arrays["out_src"], arrays["out_perm"], y2), cm
@@ -451,17 +454,20 @@ def colsum_alone(name, op, x2d, card, flops):
         f"[{card}]")
 
 
-def resident_bytes(op, kv=1):
+def resident_bytes(op, csr, kv=1):
     """(bytes one K6 step moves, bytes one K6 call on kv x tables must
     move; kv > 1 is an SpMM pass, its tables read once).  A step
     reads the wins row, vals and idx of every vreg its schedule holds,
     the kernel's tables (schedule, wide rows, incidence, descriptors), src
     and the used slots' perm rows; writes the sell and long rows of y2 and
-    the chunk rows and reads each back once; writes out; and reads the x
-    table for its gathers, then reads it and writes x_scr in the tap (all
-    but the last step of a chain).  A call reads each input once (those
-    tables, the residue's and each x table) and writes each out once,
-    whatever its number of steps."""
+    the chunk rows and reads each back once; writes out (B_pad * 128
+    words); and reads the x table for its gathers, then reads it and
+    writes x_scr in the tap (all but the last step of a chain).  A call
+    reads each input once (those tables, the residue's, and of each x
+    table the words of the columns the matrix ``csr`` holds a nonzero in:
+    what this data needs) and writes each of its kv outputs once,
+    whatever its number of steps: n_rows words in the type the kernel
+    writes (a pass's bf16 Y at 2 bytes a word; f32 for a bf16 step)."""
     import numpy as np
     nb = lambda t: t.numel() * t.element_size()
     meta, arrays = op._meta, op._arrays
@@ -480,9 +486,12 @@ def resident_bytes(op, kv=1):
                + nb(res["src"])
                + int((res["src"] != meta.n_y2_rows).sum()) * 128)
     x = meta.s_rows * 128 * el
+    x_used = np.unique(csr.col_idx).size * el
     out = meta.B_pad * 128 * el
+    y_el = 2 if op.dtype == "bf16" and kv > 1 else el
     y2 = (meta.n_y2_rows + res["chunk_rows"]) * 128 * el
-    return int(tables + 3 * x + 2 * y2 + out), int(tables + kv * (x + out))
+    return (int(tables + 3 * x + 2 * y2 + out),
+            int(tables + kv * (x_used + meta.n_rows * y_el)))
 
 
 def compare_resident(op, x2d, steps=(1, 3)):
@@ -550,35 +559,36 @@ def one_step_lines(name, op, x, card):
 
 
 def compare_spmm(op, tabs):
-    """K6's SpMM pass on the kv = len(tabs) x tables ``tabs`` against its
-    plain version on the same card tensors: y and the kernel's y2 bit for
-    bit (y2 against y2_plain on the stacked tables), and each column
-    against one K6 step on its table, bit for bit; the pass must launch
-    exactly one instance, of its kv.  Returns the worst (scaled, abs)
-    error against the plain version."""
+    """K6's SpMM pass on the kv = len(tabs) x tables ``tabs``, interleaved
+    by column, against its plain version on the same card tensors: Y
+    (n_rows, kv) and the kernel's y2, one buffer a table, bit for bit (y2
+    against y2_plain on the tables), and each column against one K6 step
+    on its table, bit for bit; the pass must launch exactly one instance,
+    of its kv.  Returns the worst (scaled, abs) error against the plain
+    version."""
     import torch
     from dasp_tpu_torch.ops.resident import resident_loop, spmm_loop, \
         spmm_loop_plain, y2_plain
     meta, arrays = op._meta, op._arrays
-    kv, x3d = len(tabs), multi_x(tabs)
+    kv, x = len(tabs), multi_x(tabs)
     key = f"{inst('resident', op.dtype)}_kv{kv}"
     scratch, out = {}, []
-    moved = launched(lambda: out.append(spmm_loop(meta, arrays, x3d, kv,
+    moved = launched(lambda: out.append(spmm_loop(meta, arrays, x, kv,
                                                   scratch=scratch)))
     if moved != {key: 1}:
         raise AssertionError(f"one {op.dtype} pass of {kv} launched "
                              f"{moved}, expected one {key}")
     y = out[0]
-    want = spmm_loop_plain(meta, arrays, x3d, kv)
-    y2 = y2_plain(meta, arrays, x3d.view(kv, meta.s_rows, 128))
+    want = spmm_loop_plain(meta, arrays, x, kv)
+    y2 = y2_plain(meta, arrays, torch.stack(tabs))
+    got2 = scratch["y2"]
     e = scaled_err(y, want)
-    if not (y.dtype == want.dtype and torch.equal(y, want)
-            and torch.equal(scratch["y2"], y2)):
+    if not (y.dtype == want.dtype and y.shape == (meta.n_rows, kv)
+            and torch.equal(y, want) and torch.equal(got2, y2)):
         raise AssertionError(f"{key} differs from its plain version: y {e}, "
-                             f"y2 {scaled_err(scratch['y2'], y2)} (scaled, "
-                             f"abs)")
-    for j, x in enumerate(tabs):
-        if not torch.equal(y[j], resident_loop(meta, arrays, x, 1)):
+                             f"y2 {scaled_err(got2, y2)} (scaled, abs)")
+    for j, t in enumerate(tabs):
+        if not torch.equal(y[:, j], resident_loop(meta, arrays, t, 1)):
             raise AssertionError(f"{key} column {j} differs from one K6 "
                                  f"step on its table")
     return e
@@ -605,21 +615,22 @@ def phase_split(op, x2d, n):
     return dict(zip(STAMPS, stamps.tolist()))
 
 
-def spmm_phase_split(op, x3d, kv):
-    """K6's phase clock over one SpMM pass of kv x tables: {word:
-    value}."""
+def spmm_phase_split(op, x, kv):
+    """K6's phase clock over one SpMM pass of kv x tables (x interleaved
+    by column): {word: value}."""
     import torch
     from dasp_tpu_torch.ops.resident import STAMP_WORDS, STAMPS, spmm_loop
-    stamps = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=x3d.device)
-    spmm_loop(op._meta, op._arrays, x3d, kv, stamps=stamps)
+    stamps = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=x.device)
+    spmm_loop(op._meta, op._arrays, x, kv, stamps=stamps)
     torch.cuda.synchronize()
     return dict(zip(STAMPS, stamps.tolist()))
 
 
 def pass_phase_lines(dev, name, csr, plan, dtypes, card):
     """K6's SpMM pass of K_COLS columns on one of phase 7's matrices: its
-    phase clock, its graphed time and cuSPARSE A @ X's on the same
-    columns, a [phase] line a dtype."""
+    phase clock, its graphed time, cuSPARSE A @ X's on the same columns,
+    and its bound (the plan's tables and each x table and output once), a
+    [phase] line a dtype."""
     import numpy as np
     import torch
     import dasp_tpu_torch as dt
@@ -628,11 +639,13 @@ def pass_phase_lines(dev, name, csr, plan, dtypes, card):
     X = np.random.default_rng(2).standard_normal((csr.n_cols, K_COLS))
     for d in dtypes:
         op = dt.SpMVOperator(plan, dtype=d, device=dev)
-        x3d = multi_x([op._prep_x(X[:, j]) for j in range(K_COLS)])
-        ph = spmm_phase_split(op, x3d, K_COLS)
+        x = multi_x([op._prep_x(X[:, j]) for j in range(K_COLS)])
+        ph = spmm_phase_split(op, x, K_COLS)
         us = {k: ph[k] / 1e3 for k in ("A", "R", "C", "D")}
-        g = time_ms(graphed(lambda: cb.spmm_fn(op._meta, op._arrays, x3d,
+        g = time_ms(graphed(lambda: cb.spmm_fn(op._meta, op._arrays, x,
                                                K_COLS)), 5)
+        nbytes = resident_bytes(op, csr, K_COLS)[1]
+        b_ms, b_by = bound(nbytes, K_COLS * 2 * csr.nnz, d)
         lib = "none (bf16)"
         if d != "bf16":
             A, vdt = cusparse_matrix(csr, d, dev)
@@ -643,11 +656,21 @@ def pass_phase_lines(dev, name, csr, plan, dtypes, card):
             f"barrier before R): A {us['A']:.2f} us, residue sums R "
             f"{us['R']:.2f}, C {us['C']:.2f}, D {us['D']:.2f}; sum "
             f"{sum(us.values()):.2f} us; graphed pass {g * 1e3:.2f} us, "
-            f"cuSPARSE A @ X {lib}; grid {ph['grid']} [{card}]")
-        del op, x3d
+            f"cuSPARSE A @ X {lib}; must move {nbytes / 1e6:.2f} MB, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
+            f"{b_ms / g:.3f} of the pass; grid {ph['grid']} [{card}]")
+        del op, x
 
 
 def multi_x(tabs):
+    """An SpMM pass's x of the x tables ``tabs`` (S, 128): interleaved by
+    column, (S*128, kv), row i word i of every table (made outside any
+    timed pass, as matmat makes it on the host)."""
+    import torch
+    return torch.stack([t.reshape(-1) for t in tabs], 1)
+
+
+def stacked_x(tabs):
     """K5's x table of the x tables ``tabs``: stacked, (kv*S, 128)."""
     import torch
     return torch.cat(tabs)
@@ -683,7 +706,7 @@ def k5_split(op, tabs, name, card):
             colsum(st["wins"], st["vals"], st["idx"], tabs[0], s)
             for st, s in zip(sts, strides)])
         for kv in KV_SIZES:
-            x = multi_x(tabs[:kv])
+            x = stacked_x(tabs[:kv])
             us[label, kv] = alone(lambda: [
                 colsum_multi(st["wins"], st["vals"], st["idx"], x, s, kv)
                 for st, s in zip(sts, strides)])
@@ -698,12 +721,14 @@ def k5_split(op, tabs, name, card):
 
 
 def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
-    """K6's SpMM pass at kv = 2, 4, 8 on the first kv of ``tabs``:
-    ALONE_REPS passes in one graph, its plain version, the bytes a pass
-    must move (A's tables once, each x table and each output once) and
-    its bound, and one cuSPARSE A @ X of the same columns (the bench's
-    baseline: for bf16 a bf16 CSR product where this build has one, else
-    f32 on the bf16-rounded values); a [time] line each, and each
+    """K6's SpMM pass at kv = 2, 4, 8 on the first kv of ``tabs``
+    (interleaved by column): ALONE_REPS passes in one graph, its plain
+    version, the bytes a pass must move (A's tables once, each x table and
+    each output once) and its bound, one cuSPARSE A @ X of the same
+    columns (the bench's baseline: for bf16 a bf16 CSR product where this
+    build has one, else f32 on the bf16-rounded values), and the device
+    kernels of one pass by the profiler, which must be the pass's one
+    kernel (bf16's Y is rounded inside it); a [time] line each, and each
     instance's row of the kernels line in ``alone``."""
     import torch
     from dasp_tpu_torch.bench.baselines import TORCH_DTYPE, CuSparseBaseline
@@ -712,13 +737,18 @@ def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
     base = CuSparseBaseline(csr, d, tabs[0].device)
     A, vdt = base.mat, TORCH_DTYPE[base.compute_dtype]
     for kv in SPMM_KV:
-        x3d = multi_x(tabs[:kv])
-        ms = time_ms(graphed(lambda: spmm_loop(meta, arrays, x3d, kv),
+        x = multi_x(tabs[:kv])
+        ms = time_ms(graphed(lambda: spmm_loop(meta, arrays, x, kv),
                              ALONE_REPS), 5) / ALONE_REPS
-        plain = time_ms(lambda: spmm_loop_plain(meta, arrays, x3d, kv), 2)
-        Xd = torch.randn((csr.n_cols, kv), dtype=vdt, device=x3d.device)
+        plain = time_ms(lambda: spmm_loop_plain(meta, arrays, x, kv), 2)
+        own, other = kernel_counts(lambda: spmm_loop(meta, arrays, x, kv))
+        if (own, other) != (1, 0):
+            raise AssertionError(f"a {d} pass of {kv} ran {own} of the "
+                                 f"port's kernels and {other} others, "
+                                 f"expected K6's one")
+        Xd = torch.randn((csr.n_cols, kv), dtype=vdt, device=x.device)
         lib = time_ms(graphed(lambda: A @ Xd, ALONE_REPS), 5) / ALONE_REPS
-        nbytes = resident_bytes(op, kv)[1]
+        nbytes = resident_bytes(op, csr, kv)[1]
         b_ms, b_by = bound(nbytes, kv * 2 * csr.nnz, d)
         k = f"{inst('resident', d)}_kv{kv}"
         alone[k] = (ms, plain, b_ms, b_by, lib)
@@ -730,7 +760,8 @@ def spmm_alone(op, csr, tabs, alone, copy_gbs, card):
             f"{nbytes / (ms * 1e6):.0f} GB/s, "
             f"{nbytes / (ms * 1e6) / copy_gbs:.1%} of the copy rate; bound "
             f"{b_ms * 1e3:.2f} us ({b_by}) at {PEAK_BYTES / 1e12} TB/s, "
-            f"{b_ms / ms:.3f} of it; {l2_fit(nbytes)} [{card}]")
+            f"{b_ms / ms:.3f} of it; {l2_fit(nbytes)}; device kernels a "
+            f"pass (profiler): {own} [{card}]")
 
 
 def kernel_counts(step):
@@ -1524,17 +1555,17 @@ def main():
         sub-plans' included."""
         d, meta = op.dtype, op._meta
         glue = dict(op._arrays, resident=None)
-        x3d = multi_x([op._prep_x(X[:, j]) for j in range(X.shape[1])])
+        x = multi_x([op._prep_x(X[:, j]) for j in range(X.shape[1])])
         out = []
         moved = launched(lambda: out.append(
-            cb.spmm_fn(meta, glue, x3d, X.shape[1])))
+            cb.spmm_fn(meta, glue, x, X.shape[1])))
         want = {inst("colsum_multi", d): n_streams(meta),
                 inst("outgather", "f64" if d == "f64" else "f32"):
                     n_outgathers(meta)}
         if moved != want:
             raise AssertionError(f"a glue pass {d} launched {moved}, "
                                  f"expected {want}")
-        return op.perm_out(cb._to_host(out[0]).T), moved
+        return op.perm_out(cb._to_host(out[0])), moved
 
     ops, rops, xs, plans = {}, {}, {}, {}
     zero_counts()
@@ -1763,7 +1794,7 @@ def main():
                 f"{row['kernel graph'] * 1e3:.1f} us; cuSPARSE chain {CHAIN}"
                 f" graph " + (f"{lib * 1e3:.1f} us" if lib else "none (bf16)")
                 + f" [{card}]")
-            step_b, call_b = resident_bytes(rop)
+            step_b, call_b = resident_bytes(rop, csr)
             t_step = kr[LONG_CHAIN][1]
             gbs = step_b / (t_step * 1e6)
             log(f"[time] {inst('resident', d)} alone at {name} shapes: "
@@ -1877,9 +1908,14 @@ def main():
                                        cb.spmm_fn(m, a, x, 4))
             own1, other1 = kernel_counts(lambda x=tabs[0], m=meta, a=arrays:
                                          cb.spmv_fn(m, a, x))
+            if (own8, other8) != (1, 0):
+                raise AssertionError(f"{name} {d}: a K6 SpMM pass of "
+                                     f"{K_COLS} ran {own8} + {other8} device "
+                                     f"kernels, expected K6's one")
             log(f"[profile] {name} {d} device kernels of one K6 SpMM pass "
                 f"of {K_COLS} vectors: {own8} of the port's (K6) + {other8} "
-                f"others (bf16's rounding); of one glue pass of 4 vectors: "
+                f"others (Y written by K6, bf16 rounded in it); of one glue "
+                f"pass of 4 vectors (stacked there by a transpose): "
                 f"{own} of the port's (K5, K2/K4) + {other} of the glue; of "
                 f"one spmv_fn (one K6 step): {own1} + {other1}")
             ph = spmm_phase_split(op, x_all, K_COLS)
@@ -2113,6 +2149,11 @@ def main():
     arms.append(("huge_columns", csr, plan, ("f32", "f64")))
     for name, csr, plan, dtypes in arms[len(suite):]:
         pass_phase_lines(dev, name, csr, plan, dtypes, card)
+    # uniform_medium's pass beside them (its bench arm is the full
+    # bench's, not this phase's): 8 f64 x tables of 1 MB, 6.3M nnz
+    (_, csr), = build_suite(["uniform_medium"], seed=0)
+    pass_phase_lines(dev, "uniform_medium", csr, dt.build_wplan(csr),
+                     DTYPES, card)
     zero_counts()
     bench_arms = bench_phase(dev, arms, card)
     bench_launches = read_counts()

@@ -44,32 +44,43 @@
 // and an f32 incidence matmul).
 //
 // An SpMM pass (dasp_resident_{f32,bf16,f64}_kv{2,4,8}, spmm_kernel) runs
-// one step for KV x tables stacked as (KV * S, 128) in one launch, the
-// phases of resident_kernel without the chain and its tap: phase A stages
-// an item's operands once and folds the tables in turn from the same
-// shared tile (XI of them gathered together), each through red and lsum
+// one step for KV x tables in one launch, the phases of resident_kernel
+// without the chain and its tap.  Its layouts are the card's, not the
+// TPU's (PASS_X_INTERLEAVED): x is one (S * 128, KV) array, the tables
+// interleaved by column (word at * KV + v is table v's word at; at KV = 1
+// the one-table layout), so that one 16-byte load (8-byte for two f32
+// tables) gathers a slot's words of a group of tables, a span of KV words
+// where the TPU's stacked (KV * S, 128) tables cost one 32-byte sector a
+// table; out is (B * 128, KV) in the value type, the caller's Y: phase D
+// gives a thread an output block's lane and all KV tables, and writes its
+// KV sums together, bf16 rounded once from the f32 sum (no kernel after
+// the pass).  Phase A stages an item's operands once and folds the tables
+// from the same shared tile, XI of them gathered together, each through
+// red and lsum
 // into its own y2, chunk rows and totals; the residue's (task, table)
-// pairs, (C)'s wide rows and long lanes and (D)'s output blocks are dealt
-// over the grid per table.  So A is read from device memory once a pass,
-// as K5 reads it, and a thread holds XI tables' sums at a time, not KV
-// as K5 does: the registers of the one-table build suffice, and the f64
-// instances stay without local memory.  Table v's y2 and out are word for
-// word those of a one-table step on table v.  The pass has a kernel of its
-// own so that resident_kernel's code stays as it was: one kernel
-// templated on KV moved the one-table build's register allocation (8 -> 0
-// local bytes) and made its f32 and bf16 steps 1-3 % slower (PERF.md §6).
-// The two kernels share phase A's colsum (colsum_fold, XI = 1 in a step)
-// and the residue's sums (residue_sums, KV = 1 in a step); so shared,
-// resident_kernel's SASS is the same as with copies of its own.
-// The phase clock is compiled only at KV = 1 and at KV_CLOCK.  What bounds
-// a pass is phase A's chain of dependent loads, as for a step: with one
-// table's 8 gathers a thread in flight, A at KV = 8 took 3x K5's read of
-// A, so XI_F32 / XI_F64 tables are gathered together.  A pass of 8 at
-// cop20k_like / webbase_like / rmat_like on an NVIDIA H100 80GB HBM3 at
-// 700 W (probes/k6_levers.py's kv arm): f32 61.8 / 90.0 / 663.9 us, f64
-// 107.6 / 173.5 / 1355.4, against 167.3 / 275.7 / 862.6 and 171.2 / 286.3
-// / 943.0 for cuSPARSE A @ X, and f32 86.6 / 121.9 / 898.7 with one table
-// at a time.
+// pairs, (C)'s wide rows and long lanes are dealt over the grid per
+// table.  y2 stays one buffer a table: interleaved, phase A's writes
+// scatter a word a sector and the pass ran slower (PERF.md §6).
+// So A is read from device memory once a pass, as K5 reads it, and a
+// thread holds XI tables' sums at a time, not KV as K5 does: the f64
+// instances stay without local memory.  Table v's y2 and Y column are
+// word for word those of a one-table step on table v.  The pass has a
+// kernel of its own so that resident_kernel's code stays as it was: one
+// kernel templated on KV moved the one-table build's register allocation
+// (8 -> 0 local bytes) and made its f32 and bf16 steps 1-3 % slower
+// (PERF.md §6).  The two kernels share phase A's colsum (colsum_fold, XI
+// = 1 and the stacked form in a step) and the residue's sums
+// (residue_sums, KV = 1 in a step); so shared, resident_kernel's SASS is
+// the same as with copies of its own.  The phase clock is compiled only
+// at KV = 1 and at KV_CLOCK.  What bounds a pass is phase A's chain of
+// dependent loads, as for a step, and past the L2 the sectors its
+// gathers pull.  A pass of 8 on an NVIDIA H100 80GB HBM3 at 700 W
+// (probes/k6_levers.py's kv arm, PERF.md §6) at cop20k_like /
+// webbase_like / rmat_like / uniform_medium: f32 58.4 / 83.6 / 555.9 /
+// 157.1 us, f64 111.0 / 146.5 / 911.6 / 287.4, against 167.1 / 276.0 /
+// 863.1 / 359.1 and 171.1 / 286.6 / 935.3 / 390.7 for cuSPARSE A @ X,
+// and f32 62.1 / 86.6 / 644.6 / 196.7, f64 108.3 / 150.1 / 1219.2 /
+// 466.1 with the x tables stacked.
 //
 // Order of arithmetic (ops/resident.py's docstring; resident_loop_plain
 // follows it, and every add and product is rounded, never contracted):
@@ -343,12 +354,96 @@ __device__ __forceinline__ void stage_item(Stage<V>& st, const int32_t* items,
   cp_async_commit();
 }
 
+// XN consecutive words of p into v, as 16-byte loads (8-byte for two f32
+// words); p is aligned to XN words (to 16 bytes at most).  Plain loads,
+// as the stacked tables' gathers are: they serve an SpMM pass's x tables.
+template <int XN>
+__device__ __forceinline__ void load_words(const float* p, float (&v)[XN]) {
+  static_assert(XN % 4 == 0 || XN == 2, "2, 4 or 8 words");
+  if constexpr (XN % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < XN / 4; ++k) {
+      const float4 q = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+}
+template <int XN>
+__device__ __forceinline__ void load_words(const double* p,
+                                           double (&v)[XN]) {
+  static_assert(XN % 2 == 0, "2, 4 or 8 words");
+#pragma unroll
+  for (int k = 0; k < XN / 2; ++k) {
+    const double2 q = reinterpret_cast<const double2*>(p)[k];
+    v[2 * k] = q.x;
+    v[2 * k + 1] = q.y;
+  }
+}
+
+// N consecutive output words v into p, as 16-byte stores (8-byte for two
+// f32 words); p is aligned to N words (to 16 bytes at most)
+template <int N>
+__device__ __forceinline__ void store_words(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+      reinterpret_cast<float4*>(p)[k] =
+          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+  } else {
+    static_assert(N == 2, "2, 4 or 8 words");
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_words(double* p,
+                                            const double (&v)[N]) {
+  static_assert(N % 2 == 0, "2, 4 or 8 words");
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k)
+    reinterpret_cast<double2*>(p)[k] = make_double2(v[2 * k], v[2 * k + 1]);
+}
+// bf16 words, packed two to a 32-bit word: 4, 8 or 16 bytes
+template <int N>
+__device__ __forceinline__ void store_words(__nv_bfloat16* p,
+                                            const __nv_bfloat16 (&v)[N]) {
+  static_assert(N == 2 || N == 4 || N == 8, "2, 4 or 8 words");
+  uint32_t w[N / 2];
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k)
+    w[k] = (uint32_t)__bfloat16_as_ushort(v[2 * k])
+           | ((uint32_t)__bfloat16_as_ushort(v[2 * k + 1]) << 16);
+  if constexpr (N == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (N == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+}
+
+// the sum type's word -> the output type's (bf16 rounds once, to nearest
+// even, as the plain version's .to(torch.bfloat16))
+__device__ __forceinline__ float narrow_to(float a, float) { return a; }
+__device__ __forceinline__ double narrow_to(double a, double) { return a; }
+__device__ __forceinline__ __nv_bfloat16 narrow_to(float a, __nv_bfloat16) {
+  return __float2bfloat16_rn(a);
+}
+
 // one vreg's colsum (K1's body) from its staged operands, for the COLS
-// lane columns j + c * TW of the thread and the XI x tables x, x + xs, ...
-// (an SpMM pass's; XI = 1 for a step), their gathers in flight together:
+// lane columns j + c * TW of the thread and XI x tables, their gathers in
+// flight together: tables x, x + xs, ... (XK = 0: one table in a step, or
+// an SpMM pass's tables stacked), or the words x[at * XK + u] (an SpMM
+// pass's tables interleaved, XK = KV; one load of XI words a slot).
 // R = 8/STRIDE level sums a column and table in registers; then table u's
 // R/F folded levels lv[u][c] and its lane sum ls[u][c]
-template <typename V, typename A, int COLS, int STRIDE, int F, int XI>
+template <typename V, typename A, int COLS, int STRIDE, int F, int XI,
+          int XK>
 __device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
                                             const int32_t* w, int P,
                                             const V (*vals)[LANES],
@@ -371,11 +466,20 @@ __device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
       const int jc = j + c * TW;
       const int lam = (int)tile[i][jc] & 127;
       const int64_t at = x_row(tile[i], lam, w, P) * LANES + lam;
+      if constexpr (XK == 0) {
 #pragma unroll
-      for (int u = 0; u < XI; ++u) {
-        const A xv = x[u * xs + at];
-        acc[u][c][i / STRIDE] =
-            add_rn(acc[u][c][i / STRIDE], mul_rn(widen(vals[i][jc]), xv));
+        for (int u = 0; u < XI; ++u) {
+          const A xv = x[u * xs + at];
+          acc[u][c][i / STRIDE] =
+              add_rn(acc[u][c][i / STRIDE], mul_rn(widen(vals[i][jc]), xv));
+        }
+      } else {
+        A xv[XI];
+        load_words<XI>(x + at * XK, xv);
+#pragma unroll
+        for (int u = 0; u < XI; ++u)
+          acc[u][c][i / STRIDE] = add_rn(acc[u][c][i / STRIDE],
+                                         mul_rn(widen(vals[i][jc]), xv[u]));
       }
     }
   }
@@ -396,34 +500,50 @@ __device__ __forceinline__ void colsum_fold(const int16_t (*tile)[LANES],
     }
 }
 
-template <typename V, typename A, int COLS, int XI>
+template <typename V, typename A, int COLS, int XI, int XK = 0>
 __device__ __forceinline__ void colsum_item(
     int stride, int F, const int16_t (*tile)[LANES], const int32_t* w, int P,
     const V (*vals)[LANES], const A* x, int64_t xs, int j,
     A (&lv)[XI][COLS][MAX_R], A (&ls)[XI][COLS]) {
   if (stride == 8) {
-    colsum_fold<V, A, COLS, 8, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+    colsum_fold<V, A, COLS, 8, 1, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                          ls);
   } else if (stride == 4) {
     if (F == 2)
-      colsum_fold<V, A, COLS, 4, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 4, 2, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                            ls);
     else
-      colsum_fold<V, A, COLS, 4, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 4, 1, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                            ls);
   } else {
     if (F == 4)
-      colsum_fold<V, A, COLS, 2, 4, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 4, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                            ls);
     else if (F == 2)
-      colsum_fold<V, A, COLS, 2, 2, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 2, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                            ls);
     else
-      colsum_fold<V, A, COLS, 2, 1, XI>(tile, w, P, vals, x, xs, j, lv, ls);
+      colsum_fold<V, A, COLS, 2, 1, XI, XK>(tile, w, P, vals, x, xs, j, lv,
+                                            ls);
   }
 }
 
-// The COO residue's row sums from the KV x tables x, x + x_words, ...
-// (an SpMM pass's; KV = 1 for a step) into rsum, rsum + rsum_vs, ...: a
-// warp per task and table (warp `warp` of `warps`, counted from the
-// grid's last warp, whose blocks hold the cheapest items), the KV tables
-// of a task on neighbouring warps
-template <typename A, int KV>
+// word c of an x table whose words lie XS apart
+template <int XS, typename A>
+__device__ __forceinline__ A x_word(const A* x, int32_t c) {
+  if constexpr (XS == 1)
+    return x[c];
+  else
+    return x[(int64_t)c * XS];
+}
+
+// The COO residue's row sums from the KV x tables (an SpMM pass's; KV = 1
+// for a step) into rsum, rsum + rsum_vs, ...: a warp per task and table
+// (warp `warp` of `warps`, counted from the grid's last warp, whose blocks
+// hold the cheapest items), the KV tables of a task on neighbouring warps.
+// Table v's word c is x[c * KV + v] with the tables interleaved (XIL),
+// x[v * x_words + c] with them stacked.
+template <typename A, int KV, bool XIL = false>
 __device__ __forceinline__ void residue_sums(const Params<A>& p,
                                              int64_t rsum_vs, int64_t warp,
                                              int64_t warps, int lane) {
@@ -431,7 +551,8 @@ __device__ __forceinline__ void residue_sums(const Params<A>& p,
        k += warps) {
     const int32_t* task = p.res_task + (k / KV) * NTASK;
     const int64_t tab = k % KV;            // the x table
-    const A* x = p.x + tab * p.x_words;
+    const A* x = XIL ? p.x + tab : p.x + tab * p.x_words;
+    constexpr int XS = XIL ? KV : 1;       // words from one x word to the next
     A* rsum = p.rsum + tab * rsum_vs;
     const int64_t e0 = task[T_FIRST];
     const int32_t* e = p.res_ent + e0 * NRES;
@@ -441,7 +562,7 @@ __device__ __forceinline__ void residue_sums(const Params<A>& p,
       A acc = A(0);
       for (int k2 = lane; k2 < w; k2 += WARP) {
         const A v = k2 < L ? mul_rn(p.res_vals[s0 + k2],
-                                    x[p.res_cols[s0 + k2]])
+                                    x_word<XS>(x, p.res_cols[s0 + k2]))
                            : A(0);
         acc = k2 == lane ? v : add_rn(acc, v);
       }
@@ -453,10 +574,10 @@ __device__ __forceinline__ void residue_sums(const Params<A>& p,
       const int32_t* el = e + (int64_t)lane * NRES;
       const int64_t s0 = el[R_SLOT];
       const int L = el[R_LEN], w = el[R_W];
-      A acc = mul_rn(p.res_vals[s0], x[p.res_cols[s0]]);
+      A acc = mul_rn(p.res_vals[s0], x_word<XS>(x, p.res_cols[s0]));
       for (int k2 = 1; k2 < L; ++k2)
         acc = add_rn(acc, mul_rn(p.res_vals[s0 + k2],
-                                 x[p.res_cols[s0 + k2]]));
+                                 x_word<XS>(x, p.res_cols[s0 + k2])));
       if (w > L) acc = add_rn(acc, A(0));  // the padding slots' zeros
       rsum[e0 + lane] = acc;
     }
@@ -692,9 +813,80 @@ resident_kernel(Params<A> p) {
   clock.write(p.per_sm);
 }
 
+// An SpMM pass's x layout, spmm_kernel's XIL.  true: the KV x tables are
+// one (S * 128, KV) array, table v's word `at` at at * KV + v, so that one
+// load of a group of tables serves a slot; false: stacked, (KV * S, 128),
+// table v's word at at v * S * 128 + at (the TPU's layout, which only
+// probes/k6_levers.py's layout lever builds).  y2 (KV, Z + 1, 128), the
+// chunk rows, the totals and the residue's sums are one buffer a table,
+// and out is (B * 128, KV) in the value type, whatever the layout.
+
+// Phase D of an SpMM pass for output block b, lane l: the outgather's sums
+// of the KV tables (K2's order: the k_used slots from zero, a zero-row slot
+// and a slot past K in the last chunk adding the zero row's word 0; the
+// residue's sum last), DC slots' gathers in flight, rounded once to the
+// value type V and written together, out[(b * 128 + l) * KV + v]
+template <typename V, typename A, int KV, int DC>
+__device__ __forceinline__ void pass_outgather(const PassParams<A>& p,
+                                               V* out, int64_t b, int l,
+                                               int64_t y2_vs) {
+  static_assert(OG_KMAX % DC == 0, "whole chunks of slots");
+  int s[OG_KMAX];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < OG_KMAX; ++k) {
+    s[k] = k < p.K ? __ldg(p.src + b * p.K + k) : p.Z;
+    any |= s[k] != p.Z;
+  }
+  A acc[KV];
+#pragma unroll
+  for (int v = 0; v < KV; ++v) acc[v] = A(0);
+  if (any) {                    // uniform in the block: one src row
+#pragma unroll
+    for (int k0 = 0; k0 < OG_KMAX; k0 += DC) {
+      if (k0 >= p.K) break;
+      int pl[DC];
+#pragma unroll
+      for (int u = 0; u < DC; ++u)
+        pl[u] = s[k0 + u] != p.Z
+                    ? (int)__ldg(p.perm + ((int64_t)(k0 + u) * p.B + b) *
+                                              LANES + l) & (LANES - 1)
+                    : 0;
+      A w[DC][KV];
+#pragma unroll
+      for (int u = 0; u < DC; ++u) {
+        const int64_t at = (int64_t)s[k0 + u] * LANES + pl[u];
+#pragma unroll
+        for (int v = 0; v < KV; ++v) w[u][v] = p.y2[v * y2_vs + at];
+      }
+#pragma unroll
+      for (int u = 0; u < DC; ++u)
+#pragma unroll
+        for (int v = 0; v < KV; ++v) acc[v] = add_rn(acc[v], w[u][v]);
+    }
+  }
+  if (p.n_res_tasks) {          // the residue rows of block b
+    const int r1 = __ldg(p.res_bptr + b + 1);
+    for (int r = __ldg(p.res_bptr + b); r < r1; ++r) {
+      const int e = __ldg(p.res_bent + r);
+      if ((e & (LANES - 1)) == l) {
+#pragma unroll
+        for (int v = 0; v < KV; ++v)
+          acc[v] = add_rn(acc[v], p.rsum[v * p.rsum_vs + (e >> 7)]);
+      }
+    }
+  }
+  V o[KV];
+#pragma unroll
+  for (int v = 0; v < KV; ++v) o[v] = narrow_to(acc[v], V());
+  store_words<KV>(out + (b * LANES + l) * KV, o);
+}
+
 // An SpMM pass: one step of resident_kernel for KV > 1 x tables, XI of
-// them (at most KV) gathered together in phase A; no chain, no tap
-template <typename V, typename A, class S, bool CLOCK, int KV, int XI>
+// them (at most KV) gathered together in phase A, on x in the layout XIL;
+// no chain, no tap
+template <typename V, typename A, class S, bool CLOCK, int KV, int XI,
+          bool XIL>
 __global__ void __launch_bounds__(S::THREADS, S::MINB)
 spmm_kernel(PassParams<A> p) {
   constexpr int XN = XI < KV ? XI : KV;
@@ -714,7 +906,6 @@ spmm_kernel(PassParams<A> p) {
   const int64_t nthreads = rows * TW;
   const int64_t long_base = (int64_t)(p.Z - p.n_long_rows) * LANES;
   const int64_t y2_vs = (int64_t)(p.Z + 1) * LANES;     // words a table
-  const int64_t out_vs = (int64_t)p.B * LANES;
   uint64_t policy = 0;
   if constexpr (S::EVICT_FIRST) policy = l2_evict_first();
   Clock<CLOCK> clock(p.stamps);
@@ -730,8 +921,9 @@ spmm_kernel(PassParams<A> p) {
                        blockIdx.x + (int64_t)k * gridDim.x, t, j, policy);
 
   // (A) the schedule as in resident_kernel; each item's staged operands
-  // serve the KV tables, XN at a time, each table's folded levels going
-  // through red and lsum in turn
+  // serve the KV tables, XN at a time (with the tables interleaved, one
+  // load of XN words a slot), each table's folded levels going through red
+  // and lsum in turn
   for (int64_t g = blockIdx.x; g < p.n_items; g += gridDim.x) {
     const int64_t next = g + (int64_t)(NS - 1) * gridDim.x;
     if (next < p.n_items) {
@@ -763,10 +955,10 @@ spmm_kernel(PassParams<A> p) {
           for (int r = 0; r < MAX_R; ++r) lv[u][c][r] = A(0);
         }
       if (live)
-        colsum_item<V, A, S::COLS, XN>(
+        colsum_item<V, A, S::COLS, XN, XIL ? KV : 0>(
             (int)d[D_STRIDE], item[I_F], st.tile[t], &st.wins[t][1],
-            (int)d[D_P], st.vals[t], p.x + v0 * p.x_words, p.x_words, j, lv,
-            ls);
+            (int)d[D_P], st.vals[t],
+            XIL ? p.x + v0 : p.x + v0 * p.x_words, p.x_words, j, lv, ls);
 #pragma unroll
       for (int u = 0; u < XN; ++u) {
         const int64_t v = v0 + u;
@@ -826,8 +1018,8 @@ spmm_kernel(PassParams<A> p) {
     grid.sync();
     clock.lap(S_A);
   }
-  residue_sums<A, KV>(p, p.rsum_vs, row * (TW / WARP) + j / WARP,
-                      rows * (TW / WARP), j % WARP);
+  residue_sums<A, KV, XIL>(p, p.rsum_vs, row * (TW / WARP) + j / WARP,
+                           rows * (TW / WARP), j % WARP);
   grid.sync();
   clock.lap(res_lap ? S_R : S_A);
 
@@ -878,18 +1070,16 @@ spmm_kernel(PassParams<A> p) {
     clock.lap(S_C);
   }
 
-  // (D) the outgather of each table, its residue added
-  constexpr int OG_K = OG_CHUNK * S::COLS < OG_KMAX ? OG_CHUNK * S::COLS
-                                                    : OG_KMAX;
-  for (int64_t b = tid / og_threads<A>(); b < (int64_t)p.B * KV;
-       b += nthreads / og_threads<A>()) {
-    const int64_t v = b / p.B;
-    outgather_block<A, OG_K>(p.src, p.perm, p.y2 + v * y2_vs,
-                             p.out + v * out_vs, b - v * p.B, p.B, p.K, p.Z,
-                             (int)(tid % og_threads<A>()),
-                             p.n_res_tasks ? p.res_bptr : nullptr,
-                             p.res_bent, p.rsum + v * p.rsum_vs);
-  }
+  // (D) a thread per (output block, lane), its KV tables together, about
+  // 64 bytes of gathers a lane column in flight (the one-table
+  // outgather's 16 bytes x OG_CHUNK slots); out is (B * 128, KV) of the
+  // value type (the launcher's `out`)
+  constexpr int DB = 64 * S::COLS / (KV * (int)sizeof(A));
+  constexpr int DC = DB < 1 ? 1 : DB > OG_KMAX ? OG_KMAX : DB;
+  V* const out = reinterpret_cast<V*>(p.out);
+  for (int64_t i = tid; i < (int64_t)p.B * LANES; i += nthreads)
+    pass_outgather<V, A, KV, DC>(p, out, i / LANES, (int)(i % LANES),
+                                 y2_vs);
   // the clock's last lap waits for every block
   if (CLOCK) grid.sync();
   clock.lap(S_D);
@@ -907,16 +1097,18 @@ constexpr int KV_CLOCK = 8;                // the SpMM pass the clock times
 // the kernel of an instance at KV x tables (1: resident_kernel, a chain),
 // with the phase clock or without it; the clock is built at one table and
 // at KV_CLOCK tables only (null elsewhere)
-template <typename V, typename A, class S, int KV = 1, int XI = 1>
+template <typename V, typename A, class S, int KV = 1, int XI = 1,
+          bool XIL = false>
 const void* kernel_of(bool clock) {
   if constexpr (KV == 1)
     return clock ? (const void*)resident_kernel<V, A, S, true>
                  : (const void*)resident_kernel<V, A, S, false>;
   else if constexpr (KV == KV_CLOCK)
-    return clock ? (const void*)spmm_kernel<V, A, S, true, KV, XI>
-                 : (const void*)spmm_kernel<V, A, S, false, KV, XI>;
+    return clock ? (const void*)spmm_kernel<V, A, S, true, KV, XI, XIL>
+                 : (const void*)spmm_kernel<V, A, S, false, KV, XI, XIL>;
   else
-    return clock ? nullptr : (const void*)spmm_kernel<V, A, S, false, KV, XI>;
+    return clock ? nullptr
+                 : (const void*)spmm_kernel<V, A, S, false, KV, XI, XIL>;
 }
 
 // co-resident blocks a SM of kernel f at its launch shape, after allowing
@@ -936,9 +1128,10 @@ cudaError_t occupancy(const void* f, int* per_sm) {
 // and spill) bytes a thread, static shared bytes a block, the dynamic
 // shared bytes its launch asks for, co-resident blocks a SM at that size,
 // and threads a block
-template <typename V, typename A, class S, int KV = 1, int XI = 1>
+template <typename V, typename A, class S, int KV = 1, int XI = 1,
+          bool XIL = false>
 int info(int* out) {
-  const void* f = kernel_of<V, A, S, KV, XI>(false);
+  const void* f = kernel_of<V, A, S, KV, XI, XIL>(false);
   cudaFuncAttributes a;
   int per_sm = 0;
   cudaError_t e = cudaFuncGetAttributes(&a, f);
@@ -956,7 +1149,7 @@ int info(int* out) {
 // kv = KV x tables: 1 launches resident_kernel (`iters` steps), more
 // spmm_kernel, which needs iters = 1 and no x_scr; the clock runs at
 // kv = 1 and KV_CLOCK only
-template <typename V, typename A, class S, int KV, int XI>
+template <typename V, typename A, class S, int KV, int XI, bool XIL>
 int launch(const void* desc, const void* items, int n_items,
            const void* wide, int n_wide, void* cbuf, const void* inc_ptr,
            const void* inc_tot, const void* inc_mult, int n_long,
@@ -967,7 +1160,7 @@ int launch(const void* desc, const void* items, int n_items,
            void* rsum, const void* res_bptr, const void* res_bent,
            int iters, double tap, void* stamps, int kv, long long cbuf_words,
            long long tot_words, long long rsum_words, void* stream) {
-  const void* f = kernel_of<V, A, S, KV, XI>(stamps != nullptr);
+  const void* f = kernel_of<V, A, S, KV, XI, XIL>(stamps != nullptr);
   if (iters < 1 || n_items < 0 || Z < n_long_rows || K > OG_KMAX ||
       n_res_tasks < 0 || (iters > 1 && !x_scr) || kv != KV ||
       (KV > 1 && (iters != 1 || x_scr)) || !f)
@@ -1026,7 +1219,8 @@ int launch(const void* desc, const void* items, int n_items,
   // as many blocks as are co-resident, or as the largest phase has work
   int64_t need = n_items;
   need = std::max(need, cdiv((int64_t)n_wide * KV, VPB));
-  need = std::max(need, cdiv((int64_t)B * KV * og_threads<A>(), S::THREADS));
+  need = std::max(need, cdiv((int64_t)B * (KV == 1 ? og_threads<A>() : LANES),
+                              S::THREADS));
   if (iters > 1) need = std::max(need, cdiv(x_words, S::THREADS));
   need = std::max(need,
                   cdiv((int64_t)n_long_rows * LANES * KV, S::THREADS));
@@ -1044,19 +1238,24 @@ int launch(const void* desc, const void* items, int n_items,
 // probes/k6_levers.py measured for its value type (the header note)
 using ShapeF32 = Shape<1, 2, 2, true>;     // f32 and bf16 values
 using ShapeF64 = Shape<2, 2, 2, true>;
-// x tables an SpMM pass gathers together in phase A, by value type
-// (probes/k6_levers.py's kv arm, PERF.md §6).  Against one at a time (8
-// gathers a thread in flight, phase A at 3x K5's read of A): in f32 and
-// bf16 four cut a pass of 8 by 26-30 % on cop20k_like, webbase_like and
-// rmat_like and by 18 % on uniform_medium; in f64 two cut it by 6-12 % on
-// the first three and cost 11 % on uniform_medium, the best geomean of
-// one, two and four (four: 7-11 % and 18 %)
+// x tables an SpMM pass gathers together in phase A, by value type, one
+// 16-byte load a group (two in f64) (probes/k6_levers.py's kv arm,
+// PERF.md §6).  Against two, four cut a pass of 8 by 13-27 % in
+// f32 on cop20k_like, webbase_like, rmat_like and uniform_medium, and in
+// f64 by 3-12 % on the last three for 4 % more on cop20k_like; eight
+// spill (56 bytes a thread in f32, 3 KB in f64) and change an f32 pass by
+// -6 to +0.5 %, a bf16 one by -5 to +2 %.  The f64 choice is not keyed on
+// whether the KV tables fit the L2: cop20k_like and uniform_medium both
+// hold 8 MB of them, and two tables win on the first, four by 12 % on the
+// second
 constexpr int XI_F32 = 4;                  // f32 and bf16 values
-constexpr int XI_F64 = 2;
+constexpr int XI_F64 = 4;
+// the library's SpMM pass layout: x interleaved by column
+constexpr bool PASS_X_INTERLEAVED = true;
 
 }  // namespace
 
-#define DASP_RESIDENT(NAME, V, A, S, KV, XI)                                 \
+#define DASP_RESIDENT(NAME, V, A, S, KV, XI, XIL)                            \
   extern "C" int NAME(                                                       \
       const void* desc, const void* items, int n_items, const void* wide,    \
       int n_wide, void* cbuf, const void* inc_ptr, const void* inc_tot,      \
@@ -1068,7 +1267,7 @@ constexpr int XI_F64 = 2;
       const void* res_bptr, const void* res_bent, int iters, double tap,     \
       void* stamps, int kv, long long cbuf_words, long long tot_words,       \
       long long rsum_words, void* stream) {                                  \
-    return launch<V, A, S, KV, XI>(                                          \
+    return launch<V, A, S, KV, XI, XIL>(                                     \
         desc, items, n_items, wide, n_wide, cbuf, inc_ptr, inc_tot,          \
         inc_mult, n_long, n_long_rows, src, perm, B, K, Z, x, x_scr,         \
         x_words, y2, tot, out, res_ent, res_task, n_res_tasks, res_cols,     \
@@ -1076,25 +1275,31 @@ constexpr int XI_F64 = 2;
         cbuf_words, tot_words, rsum_words, stream);                          \
   }
 
-DASP_RESIDENT(dasp_resident_f32, float, float, ShapeF32, 1, 1)
-DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float, ShapeF32, 1, 1)
-DASP_RESIDENT(dasp_resident_f64, double, double, ShapeF64, 1, 1)
+DASP_RESIDENT(dasp_resident_f32, float, float, ShapeF32, 1, 1, false)
+DASP_RESIDENT(dasp_resident_bf16, __nv_bfloat16, float, ShapeF32, 1, 1, false)
+DASP_RESIDENT(dasp_resident_f64, double, double, ShapeF64, 1, 1, false)
 
 // the SpMM pass: kv tables at one step (probes/k6_levers.cu, which includes
 // this file, builds kv = 1 alone)
 #ifndef DASP_RESIDENT_KV1_ONLY
-DASP_RESIDENT(dasp_resident_f32_kv2, float, float, ShapeF32, 2, XI_F32)
-DASP_RESIDENT(dasp_resident_f32_kv4, float, float, ShapeF32, 4, XI_F32)
-DASP_RESIDENT(dasp_resident_f32_kv8, float, float, ShapeF32, 8, XI_F32)
+DASP_RESIDENT(dasp_resident_f32_kv2, float, float, ShapeF32, 2, XI_F32,
+              PASS_X_INTERLEAVED)
+DASP_RESIDENT(dasp_resident_f32_kv4, float, float, ShapeF32, 4, XI_F32,
+              PASS_X_INTERLEAVED)
+DASP_RESIDENT(dasp_resident_f32_kv8, float, float, ShapeF32, 8, XI_F32,
+              PASS_X_INTERLEAVED)
 DASP_RESIDENT(dasp_resident_bf16_kv2, __nv_bfloat16, float, ShapeF32, 2,
-              XI_F32)
+              XI_F32, PASS_X_INTERLEAVED)
 DASP_RESIDENT(dasp_resident_bf16_kv4, __nv_bfloat16, float, ShapeF32, 4,
-              XI_F32)
+              XI_F32, PASS_X_INTERLEAVED)
 DASP_RESIDENT(dasp_resident_bf16_kv8, __nv_bfloat16, float, ShapeF32, 8,
-              XI_F32)
-DASP_RESIDENT(dasp_resident_f64_kv2, double, double, ShapeF64, 2, XI_F64)
-DASP_RESIDENT(dasp_resident_f64_kv4, double, double, ShapeF64, 4, XI_F64)
-DASP_RESIDENT(dasp_resident_f64_kv8, double, double, ShapeF64, 8, XI_F64)
+              XI_F32, PASS_X_INTERLEAVED)
+DASP_RESIDENT(dasp_resident_f64_kv2, double, double, ShapeF64, 2, XI_F64,
+              PASS_X_INTERLEAVED)
+DASP_RESIDENT(dasp_resident_f64_kv4, double, double, ShapeF64, 4, XI_F64,
+              PASS_X_INTERLEAVED)
+DASP_RESIDENT(dasp_resident_f64_kv8, double, double, ShapeF64, 8, XI_F64,
+              PASS_X_INTERLEAVED)
 #endif
 
 // K6's build figures (info above) for value type dtype (0 f32, 1 bf16,
@@ -1105,15 +1310,27 @@ extern "C" int dasp_resident_info(int dtype, int kv, int* out) {
     case 17: return info<__nv_bfloat16, float, ShapeF32>(out);
     case 33: return info<double, double, ShapeF64>(out);
 #ifndef DASP_RESIDENT_KV1_ONLY
-    case 2: return info<float, float, ShapeF32, 2, XI_F32>(out);
-    case 4: return info<float, float, ShapeF32, 4, XI_F32>(out);
-    case 8: return info<float, float, ShapeF32, 8, XI_F32>(out);
-    case 18: return info<__nv_bfloat16, float, ShapeF32, 2, XI_F32>(out);
-    case 20: return info<__nv_bfloat16, float, ShapeF32, 4, XI_F32>(out);
-    case 24: return info<__nv_bfloat16, float, ShapeF32, 8, XI_F32>(out);
-    case 34: return info<double, double, ShapeF64, 2, XI_F64>(out);
-    case 36: return info<double, double, ShapeF64, 4, XI_F64>(out);
-    case 40: return info<double, double, ShapeF64, 8, XI_F64>(out);
+    case 2:
+      return info<float, float, ShapeF32, 2, XI_F32, PASS_X_INTERLEAVED>(out);
+    case 4:
+      return info<float, float, ShapeF32, 4, XI_F32, PASS_X_INTERLEAVED>(out);
+    case 8:
+      return info<float, float, ShapeF32, 8, XI_F32, PASS_X_INTERLEAVED>(out);
+    case 18:
+      return info<__nv_bfloat16, float, ShapeF32, 2, XI_F32,
+                  PASS_X_INTERLEAVED>(out);
+    case 20:
+      return info<__nv_bfloat16, float, ShapeF32, 4, XI_F32,
+                  PASS_X_INTERLEAVED>(out);
+    case 24:
+      return info<__nv_bfloat16, float, ShapeF32, 8, XI_F32,
+                  PASS_X_INTERLEAVED>(out);
+    case 34:
+      return info<double, double, ShapeF64, 2, XI_F64, PASS_X_INTERLEAVED>(out);
+    case 36:
+      return info<double, double, ShapeF64, 4, XI_F64, PASS_X_INTERLEAVED>(out);
+    case 40:
+      return info<double, double, ShapeF64, 8, XI_F64, PASS_X_INTERLEAVED>(out);
 #endif
   }
   return (int)cudaErrorInvalidValue;

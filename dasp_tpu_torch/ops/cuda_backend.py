@@ -16,12 +16,14 @@ The counterpart of ``dasp_tpu/ops/pallas_backend.py`` for one device:
   the reference-order glue: one colsum launch per stream (K1, or K3 in
   f64, ``ops/colsum.py``), the tensor glue of ``_assemble_y``, and one
   outgather launch (K2, or K4 in f64, ``ops/outgather.py``).
-* ``spmm_fn`` runs a pass of kv = 2, 4 or 8 vectors as ONE launch of the
+* ``spmm_fn`` runs a pass of kv = 2, 4 or 8 vectors, x (s_rows*128, kv)
+  interleaved by column in and Y (n_rows, kv) out, as ONE launch of the
   resident executor's kv-table instance at one step (``resident.spmm_loop``)
   on every table set with a schedule, and kv = 1 as ``spmv_fn``.  Table
   sets without one take the glue: one multi-vector colsum launch per
-  stream (K5, ``ops/colsum_multi.py``) for the kv vectors, then the glue
-  once, the vector as a batch dimension, and one outgather launch.
+  stream (K5, ``ops/colsum_multi.py``) for the kv vectors, stacked, then
+  the glue once, the vector as a batch dimension, and one outgather
+  launch.
 * ``TorchSpMV`` is the operator (``PallasSpMV``, :1230-1474), on the
   CUDA card unless the caller names another device: ``__call__``,
   ``matmat``, and ``timing_loop``, which runs the whole chain in one K6
@@ -369,19 +371,22 @@ def prep_x(meta: WMeta, x, col_perm=None) -> np.ndarray:
     and float32 otherwise (bf16 plans take an f32 x, as the reference's);
     ``col_perm`` (plan.col_perm, old->new) scatters x into relabeled
     column order."""
-    return prep_x_multi(meta, np.asarray(x)[:, None], 1, col_perm)
+    return prep_x_multi(meta, np.asarray(x)[:, None], 1,
+                        col_perm).reshape(meta.s_rows, LANES)
 
 
 def prep_x_multi(meta: WMeta, X, kv: int, col_perm=None) -> np.ndarray:
-    """Host-side: the columns of X (n_cols, <= kv) as K5's stacked
-    (kv*s_rows,128) x tables, table j the padded (and, with ``col_perm``,
-    relabeled) column j; tables past X's columns are zero."""
+    """Host-side: the columns of X (n_cols, <= kv) as an SpMM pass's x
+    tables, interleaved by column: (s_rows*128, kv), column j the padded
+    (and, with ``col_perm``, relabeled) column j of X, so that row i holds
+    word i of every table; columns past X's are zero.  At kv = 1 it is
+    ``prep_x``'s table, byte for byte."""
     dt = np.float64 if meta.dtype == "f64" else np.float32
     X = np.asarray(X)
-    xp = np.zeros((kv, meta.s_rows * LANES), dtype=dt)
+    xp = np.zeros((meta.s_rows * LANES, kv), dtype=dt)
     cols = slice(0, meta.n_cols) if col_perm is None else col_perm
-    xp[:X.shape[1], cols] = X[:meta.n_cols].T
-    return xp.reshape(kv * meta.s_rows, LANES)
+    xp[cols, :X.shape[1]] = X[:meta.n_cols]
+    return xp
 
 
 # ---------------------------------------------------------------------------
@@ -584,38 +589,40 @@ def _wide(meta: WMeta, arrays: Dict, xb: torch.Tensor, plain: bool,
     return _assemble_y(meta, arrays, partials, xb, plain, multi)
 
 
-def spmm_fn(meta: WMeta, arrays: Dict, x3d: torch.Tensor,
+def spmm_fn(meta: WMeta, arrays: Dict, x: torch.Tensor,
             kv: int = KV_SPMM, plain: bool = False) -> torch.Tensor:
-    """Multi-vector SpMV (SpMM, pallas_backend.py:1017-1040): x3d
-    (kv*s_rows, 128), kv stacked x tables (f64 for f64 plans, f32
-    otherwise) -> y (kv, n_rows) in the plan's row order and output dtype.
-    Row j depends on table j alone.
+    """Multi-vector SpMV (SpMM, pallas_backend.py:1017-1040): x
+    (s_rows*128, kv), kv x tables interleaved by column (``prep_x_multi``;
+    f64 for f64 plans, f32 otherwise) -> Y (n_rows, kv) in the plan's row
+    order and output dtype.  Column j depends on table j alone.
 
     Tables with a schedule (``arrays["resident"]``): one launch of K6's
     kv-table instance at one step (``resident.spmm_loop``), which reads
-    each A tile once for the kv tables and sums the residue by its trees;
-    kv = 1 is one K6 step.  Row j equals, bit for bit, the scheduled
-    ``spmv_fn`` (one K6 step) on table j.  ``plain`` runs the plain
-    version (``resident.spmm_loop_plain``).
+    each A tile once for the kv tables, gathers a slot's x words of a
+    group of tables with one load, sums the residue by its trees and
+    writes Y itself; kv = 1 is one K6 step.  Column j equals, bit for
+    bit, the scheduled ``spmv_fn`` (one K6 step) on table j.  ``plain``
+    runs the plain version (``resident.spmm_loop_plain``).
 
-    Without one (the empty plan; ``arrays_from_reference``'s tables): one
-    K5 launch per stream reads the A stream once for all kv vectors; then
-    the glue runs ONCE on the (kv, rows, 128) partials, with the vector as
-    a batch dimension, one outgather launch covers the kv vectors, and a
+    Without one (the empty plan; ``arrays_from_reference``'s tables): the
+    tables are transposed to K5's stacked (kv, s_rows, 128) here; one K5
+    launch per stream reads the A stream once for all kv vectors; then the
+    glue runs ONCE on the (kv, rows, 128) partials, with the vector as a
+    batch dimension, one outgather launch covers the kv vectors, and a
     residue sub-plan recurses as an SpMM (its streams run through K5 too).
-    Row j then equals, bit for bit, the reference-order ``spmv_fn`` on it.
-    For f64 both are one fp64 pass, where the reference runs two f32
+    Column j then equals, bit for bit, the reference-order ``spmv_fn`` on
+    it.  For f64 both are one fp64 pass, where the reference runs two f32
     cross-product passes (spmm_fn_dd, :1043)."""
-    if x3d.shape[0] != kv * meta.s_rows:
-        raise ValueError(f"spmm_fn: x3d has {x3d.shape[0]} rows, kv "
-                         f"{kv} tables of {meta.s_rows} have "
-                         f"{kv * meta.s_rows}")
+    if tuple(x.shape) != (meta.s_rows * LANES, kv):
+        raise ValueError(f"spmm_fn: x is {tuple(x.shape)}, kv {kv} tables "
+                         f"of {meta.s_rows} rows interleaved by column are "
+                         f"({meta.s_rows * LANES}, {kv})")
     if arrays.get("resident") is not None:
         from . import resident
         loop = resident.spmm_loop_plain if plain else resident.spmm_loop
-        return loop(meta, arrays, x3d, kv)
-    return _narrow(meta, _wide(meta, arrays, x3d.view(kv, -1, LANES), plain,
-                               multi=True))
+        return loop(meta, arrays, x, kv)
+    xb = x.t().contiguous().view(kv, meta.s_rows, LANES)
+    return _narrow(meta, _wide(meta, arrays, xb, plain, multi=True)).t()
 
 
 def stack_y2(meta: WMeta, arrays: Dict, partials, xb: torch.Tensor):
@@ -815,10 +822,11 @@ class TorchSpMV:
         return self.perm_out(_to_host(self.device_call(self._prep_x(x))))
 
     def _spmm_passes(self, X: np.ndarray):
-        """(x3d on the device, kv) of each pass of ``matmat(X)``, made as
-        it is asked for: full passes of KV_SPMM columns, then one pass of
-        the smallest kv the kernel has (1, 2, 4, 8) that holds the rest,
-        padded with zero tables."""
+        """(x on the device, kv) of each pass of ``matmat(X)``, made as it
+        is asked for: full passes of KV_SPMM columns, then one pass of the
+        smallest kv the kernel has (1, 2, 4, 8) that holds the rest,
+        padded with zero tables; x (s_rows*128, kv), interleaved by column
+        on the host (``prep_x_multi``) and uploaded once."""
         k = X.shape[1]
         for c0 in range(0, k, KV_SPMM):
             kv = min(s for s in KV_SIZES if s >= min(k - c0, KV_SPMM))
@@ -828,24 +836,24 @@ class TorchSpMV:
 
     def spmm_loop(self, X):
         """A callable running the device half of ``matmat(X)`` once, on x
-        tables uploaded here: the (kv, n_rows) y of each pass, in the
+        tables uploaded here: the (n_rows, kv) Y of each pass, in the
         plan's row order (the bench times it)."""
         meta, arrays = self._meta, self._arrays
         passes = list(self._spmm_passes(np.asarray(X)))
-        return lambda: [spmm_fn(meta, arrays, x3d, kv) for x3d, kv in passes]
+        return lambda: [spmm_fn(meta, arrays, x, kv) for x, kv in passes]
 
     def matmat(self, X) -> np.ndarray:
         """Multi-vector SpMV (SpMM): Y = A @ X for X of shape (n_cols, k),
         in original order (PallasSpMV.matmat, :1411-1474).  The k columns
         run up to KV_SPMM at a time through ``spmm_fn``
-        (``_spmm_passes``); the rows of a short last pass's zero tables
-        are dropped.  Y is float64 for f64 operators and for a float64 X,
-        else X's dtype."""
+        (``_spmm_passes``); the columns of a short last pass's zero
+        tables are dropped.  Y is float64 for f64 operators and for a
+        float64 X, else X's dtype."""
         X = np.asarray(X)
         k = X.shape[1]
-        cols = [_to_host(spmm_fn(self._meta, self._arrays, x3d, kv))
-                for x3d, kv in self._spmm_passes(X)]
-        out = np.concatenate(cols)[:k].T
+        cols = [_to_host(spmm_fn(self._meta, self._arrays, x, kv))
+                for x, kv in self._spmm_passes(X)]
+        out = np.concatenate(cols, axis=1)[:, :k]
         dt = (np.float64 if self.dtype == "f64" or X.dtype == np.float64
               else X.dtype)
         return self.perm_out(out.astype(dt))

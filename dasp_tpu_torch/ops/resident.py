@@ -80,13 +80,20 @@ time before the first add, one round trip for the whole fold.
 
 An SpMM pass of kv = 2, 4 or 8 columns (``spmm_loop``, what
 ``cuda_backend.spmm_fn`` runs on a table set with a schedule) is one
-launch of the kernel's kv-table instance at one step: kv x tables stacked
-as (kv*s_rows, 128), each item's A tile read once for them all, and table
-j's y2 and out word for word those of one step on table j alone, so
-column j equals ``resident_loop(meta, arrays, x_j, 1)`` (``device_call``)
-bit for bit.
-``spmm_loop_plain`` is ``resident_loop_plain`` at one step with the kv
-tables as a leading batch dimension.
+launch of the kernel's kv-table instance at one step.  It takes the kv x
+tables interleaved by column, one (s_rows*128, kv) array whose row i holds
+word i of every table (at kv = 1, byte for byte the (s_rows, 128) table
+of a step), so that one load of a slot's x word serves a group of tables;
+it reads each item's A tile once for them all and returns Y (n_rows, kv),
+the first n_rows rows of the kernel's (B_pad*128, kv) out, in the plan's
+output dtype (bf16 rounded inside the kernel).  Table j's sums are word
+for word those of one step on table j alone, so column j equals
+``resident_loop(meta, arrays, x_j, 1)`` (``device_call``) bit for bit.
+The kernel keeps y2 one buffer a table, (kv, n_y2_rows + 1, 128), as
+``y2_plain`` gives it.
+``spmm_loop_plain`` takes and returns the same layouts: it is
+``resident_loop_plain`` at one step with the kv tables as a leading batch
+dimension, transposed in and out.
 
 ``resident_loop`` and ``spmm_loop`` take a CPU tensor to their plain
 versions and a CUDA tensor to the kernel; there is no fallback from one to
@@ -466,30 +473,38 @@ def _check_residue(meta, res: Dict) -> None:
 
 
 def _check(fn: str, meta, arrays: Dict, x: torch.Tensor, iters,
-           kv: int = 1, stamps: torch.Tensor = None) -> str:
-    """Validate a resident call on ``kv`` x tables stacked as (kv*s_rows,
-    128) (kv > 1: one step); return the kernel instance's value type."""
+           kv: int = None, stamps: torch.Tensor = None) -> str:
+    """Validate a resident call on one x table (s_rows, 128) (kv None) or
+    an SpMM pass on kv x tables interleaved by column, (s_rows*128, kv)
+    (one step); return the kernel instance's value type."""
     res = arrays.get("resident")
     if res is None:
         raise ValueError(f"{fn}: the plan has no resident tables (the "
                          "empty plan, or tables carried from the reference)")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {x.device}")
-    if kv not in KV_SIZES:
+    if kv is not None and kv not in KV_SIZES:
         raise ValueError(f"{fn}: kv {kv!r} must be one of {KV_SIZES}")
     xdt = torch.float64 if meta.dtype == "f64" else torch.float32
-    if (x.dtype != xdt or tuple(x.shape) != (kv * meta.s_rows, LANES)
-            or not x.is_contiguous()):
+    S = meta.s_rows
+    shape = (S, LANES) if kv is None else (S * LANES, kv)
+    if x.dtype != xdt or tuple(x.shape) != shape or not x.is_contiguous():
+        what = ("one x table" if kv is None else
+                f"{kv} x table(s) of {S} rows interleaved by column: row i "
+                f"holds word i of every table")
+        stacked = (kv is not None and tuple(x.shape) == (kv * S, LANES)
+                   and kv > 1)
         raise ValueError(
-            f"{fn}: x must be a contiguous {xdt} ({kv * meta.s_rows}, "
-            f"{LANES}) tensor ({kv} x table(s) of {meta.s_rows} rows), got "
-            f"{x.dtype} {tuple(x.shape)}")
+            f"{fn}: x must be a contiguous {xdt} {shape} tensor ({what}), "
+            f"got {x.dtype} {tuple(x.shape)}"
+            + (f" (the stacked (kv*s_rows, 128) layout; a pass takes "
+               f"(s_rows*128, kv) = {shape})" if stacked else ""))
     if res["src"].device != x.device:
         raise ValueError(f"{fn}: x is on {x.device}, the tables on "
                          f"{res['src'].device}")
     if not isinstance(iters, int) or iters < 1:
         raise ValueError(f"{fn}: iters must be an int >= 1, got {iters!r}")
-    if kv > 1 and iters != 1:
+    if kv is not None and iters != 1:
         raise ValueError(f"{fn}: iters must be 1 at kv = {kv} (an SpMM "
                          f"pass is one step), got {iters}")
     if (x.device.type == "cuda"
@@ -498,8 +513,8 @@ def _check(fn: str, meta, arrays: Dict, x: torch.Tensor, iters,
         raise ValueError(f"{fn}: {x.device} is not the current CUDA "
                          "device (use torch.cuda.device(...))")
     if x.device.type == "cuda" and x.data_ptr() % 16:
-        raise ValueError(f"{fn}: x must be 16-byte aligned (the tap reads "
-                         "it in 16-byte vectors)")
+        raise ValueError(f"{fn}: x must be 16-byte aligned (the tap and "
+                         "the pass read it in 16-byte vectors)")
     if stamps is not None and (
             stamps.device != x.device or x.device.type != "cuda"
             or stamps.dtype != torch.int64
@@ -525,7 +540,7 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
     ``grid.sync()`` that ends it, and the grid it ran on.  The plain
     version has no clock.  ``scratch``, a dict, receives the kernel's
     last y2 and out (the smoke holds them to the plain version's)."""
-    name = _check("resident_loop", meta, arrays, x2d, iters, 1, stamps)
+    name = _check("resident_loop", meta, arrays, x2d, iters, None, stamps)
     if x2d.device.type == "cpu":
         return resident_loop_plain(meta, arrays, x2d, iters)
     entry = f"dasp_resident_{name}"
@@ -540,29 +555,30 @@ def resident_loop(meta, arrays: Dict, x2d: torch.Tensor, iters: int,
 resident_loop.launches = {"f32": 0, "bf16": 0, "f64": 0}
 
 
-def spmm_loop(meta, arrays: Dict, x3d: torch.Tensor, kv: int,
+def spmm_loop(meta, arrays: Dict, x: torch.Tensor, kv: int,
               stamps: torch.Tensor = None,
               scratch: Dict = None) -> torch.Tensor:
     """An SpMM pass: K6's kv-table instance at one step (one cooperative
-    launch) on CUDA tensors, ``spmm_loop_plain`` on CPU tensors.  x3d
-    (kv*s_rows, 128), kv in (1, 2, 4, 8), the stacked x tables, is never
-    written.  Returns y (kv, n_rows) in the plan's row order and output
-    dtype; row j equals ``resident_loop`` at one step on table j, bit for
-    bit.  kv = 1 is that step.  ``stamps`` (at kv = 1 or 8) and
-    ``scratch`` (y2 and out, (kv, ...)) as for ``resident_loop``."""
-    name = _check("spmm_loop", meta, arrays, x3d, 1, kv, stamps)
+    launch) on CUDA tensors, ``spmm_loop_plain`` on CPU tensors.  x
+    (s_rows*128, kv), kv in (1, 2, 4, 8), the x tables interleaved by
+    column, is never written.  Returns Y (n_rows, kv) in the plan's row
+    order and output dtype; column j equals ``resident_loop`` at one step
+    on table j, bit for bit.  kv = 1 is that step.  ``stamps`` (at kv = 1
+    or 8) as for ``resident_loop``; ``scratch`` receives the kernel's y2,
+    (kv, n_y2_rows + 1, 128), and its out, (B_pad*128, kv)."""
+    name = _check("spmm_loop", meta, arrays, x, 1, kv, stamps)
     if kv == 1:
-        return resident_loop(meta, arrays, x3d, 1, stamps,
-                             scratch).unsqueeze(0)
-    if x3d.device.type == "cpu":
-        return spmm_loop_plain(meta, arrays, x3d, kv)
+        return resident_loop(meta, arrays, x.view(meta.s_rows, LANES), 1,
+                             stamps, scratch).unsqueeze(1)
+    if x.device.type == "cpu":
+        return spmm_loop_plain(meta, arrays, x, kv)
     entry = f"dasp_resident_{name}_kv{kv}"
     y2, out = launch_entry(getattr(_build.library(), entry), entry, meta,
-                           arrays, x3d, 1, stamps, kv)
+                           arrays, x, 1, stamps, kv)
     spmm_loop.launches[f"{name}_kv{kv}"] += 1
     if scratch is not None:
         scratch.update(y2=y2, out=out)
-    return _finish(meta, out)
+    return out[:meta.n_rows]
 
 
 spmm_loop.launches = {f"{d}_kv{kv}": 0 for d in ("f32", "bf16", "f64")
@@ -575,7 +591,8 @@ def launch_entry(fn, entry: str, meta, arrays: Dict, x: torch.Tensor,
     launch the C entry point ``fn`` (named ``entry``, with
     ``_build.SIGNATURES["dasp_resident_f32"]``'s arguments) for the kv
     tables of x, on a call that ``_check`` has passed; return the last
-    step's y2 and out ((kv, ...) at kv > 1).  Raises if the launch is
+    step's y2 and out (at kv > 1 y2 (kv, n_y2_rows + 1, 128), out
+    (B_pad*128, kv) in the plan's output dtype).  Raises if the launch is
     refused (the launcher refuses kv, iters and x_scr that do not fit the
     entry, and ``stamps`` where the entry has no clock: kv other than 1
     and 8).  It counts no launch: ``resident_loop`` and ``spmm_loop`` do,
@@ -593,7 +610,11 @@ def launch_entry(fn, entry: str, meta, arrays: Dict, x: torch.Tensor,
                      device=dev)
     cbuf = torch.empty(lead + (n_cbuf,), dtype=dt, device=dev)
     tot = torch.empty(lead + (n_tot,), dtype=dt, device=dev)
-    out = torch.empty(lead + (meta.B_pad, LANES), dtype=dt, device=dev)
+    # a pass writes Y itself, in the plan's output dtype
+    out = (torch.empty((meta.B_pad * LANES, kv), device=dev,
+                       dtype=torch.bfloat16 if meta.dtype == "bf16" else dt)
+           if kv > 1 else torch.empty((meta.B_pad, LANES), dtype=dt,
+                                      device=dev))
     rc = fn(
         res["desc"].data_ptr(), res["items"].data_ptr(),
         res["items"].shape[0], res["wide"].data_ptr(), res["wide"].shape[0],
@@ -648,14 +669,16 @@ def resident_loop_plain(meta, arrays: Dict, x2d: torch.Tensor,
     return _plain(meta, arrays, x2d, iters)
 
 
-def spmm_loop_plain(meta, arrays: Dict, x3d: torch.Tensor,
+def spmm_loop_plain(meta, arrays: Dict, x: torch.Tensor,
                     kv: int) -> torch.Tensor:
-    """The computation of ``spmm_loop`` in plain PyTorch on any device:
+    """The computation of ``spmm_loop`` in plain PyTorch on any device, on
+    the same layouts (x (s_rows*128, kv) in, Y (n_rows, kv) out):
     ``resident_loop_plain`` at one step with the kv x tables as a leading
-    batch dimension (every op elementwise or a gather, so row j is that
+    batch dimension (every op elementwise or a gather, so column j is that
     of table j alone, bit for bit)."""
-    _check("spmm_loop_plain", meta, arrays, x3d, 1, kv)
-    return _plain(meta, arrays, x3d.view(kv, meta.s_rows, LANES), 1)
+    _check("spmm_loop_plain", meta, arrays, x, 1, kv)
+    xb = x.t().contiguous().view(kv, meta.s_rows, LANES)
+    return _plain(meta, arrays, xb, 1).t().contiguous()
 
 
 def _plain(meta, arrays: Dict, x: torch.Tensor, iters: int) -> torch.Tensor:
@@ -772,8 +795,8 @@ def _long_rows_plain(meta, res: Dict, parts: List[torch.Tensor],
 
 
 def _finish(meta, out: torch.Tensor) -> torch.Tensor:
-    """The last step's out (B_pad, 128), or the (kv, B_pad, 128) of a pass
-    (its residue added) -> y: the first n_rows words of each; bf16 plans
-    round y once (one torch op on the card)."""
+    """The last step's out (B_pad, 128), or the plain pass's (kv, B_pad,
+    128) (its residue added) -> y: the first n_rows words of each; bf16
+    plans round y once (one torch op on the card)."""
     return cb._narrow(meta, out.reshape(*out.shape[:-2], -1)[
         ..., :meta.n_rows])

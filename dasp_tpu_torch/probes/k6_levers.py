@@ -14,15 +14,19 @@ every one.
     python -m dasp_tpu_torch.probes.k6_levers [arm,...] [dtype,...] kv
 
 The kv arm (``kv`` as the third argument) builds the file once for each
-``K6_XI`` of ``KV_VARIANTS`` (1, 2, 4), whose entries
+entry of ``KV_VARIANTS``, whose entries
 ``dasp_k6_lever_{f32,bf16,f64}_kv8`` run an SpMM pass of 8 x tables at
-each value type's shipped Shape: phase A folding one table at a time, or
-two or four tables with their gathers in flight together.  Each is held
-bit for bit to the shipped pass (``spmm_loop``), timed as a pass (graph
-replays, two rounds) beside 8 K6 steps and cuSPARSE ``A @ X``, with its
-phase clock and its build's registers and spills.  Its figures pick
-``XI_F32`` and ``XI_F64`` in ``csrc/resident.cu`` (measured on the three
-arms and uniform_medium).
+each value type's shipped Shape with the variant's tables gathered
+together in phase A (``K6_XI`` in f32 and bf16, ``K6_XI64`` in f64: 2, 4
+or 8) and its x layout (``K6_XIL``): the x tables interleaved by column
+(one load of a group of tables a slot) or stacked as the TPU keeps them
+(a load a table; the lever passes them stacked).  Each is held bit for
+bit to the shipped pass (``spmm_loop``: out and y2), timed as a pass
+(graph replays, two rounds) beside 8 K6 steps and cuSPARSE ``A @ X``,
+with its phase clock and its build's registers and spills.  Its figures
+pick ``XI_F32``, ``XI_F64`` and ``PASS_X_INTERLEAVED`` in
+``csrc/resident.cu`` (measured on cop20k_like, webbase_like, rmat_like
+and uniform_medium).
 
 For each suite matrix (cop20k_like, webbase_like, rmat_like, or the arms
 given) and value type (f64, or the dtypes given) the shape arm holds the
@@ -82,26 +86,35 @@ KERNELS = {"f32": "resident_kernelIff", "bf16":
 CHAIN = 100                     # steps of the chained launch
 REPS = 20                       # single-step launches a graph
 _FLAGS = ("K6_COLS", "K6_MINB", "K6_STAGES", "K6_EF")
-# the kv arm: x tables of a pass, and the tables phase A gathers together
+# the kv arm: x tables of a pass; for each variant the tables phase A
+# gathers together in f32 and bf16 and in f64, and whether the x tables
+# are interleaved by column (csrc/resident.cu's spmm_kernel XIL); "4
+# together" is the shipped pass's
 KV_LEVER = 8
-KV_VARIANTS = {"one table at a time": 1, "two tables interleaved": 2,
-               "four tables interleaved": 4}
+KV_VARIANTS = {
+    "x stacked (the TPU's), 4 together": (4, 4, False),
+    "x interleaved, 2 together": (2, 2, True),
+    "x interleaved, 4 together": (4, 4, True),
+    "x interleaved, 8 together": (8, 8, True),
+}
 # each value type's shipped Shape (csrc/resident.cu's ShapeF32, ShapeF64)
 SHIPPED = {"f32": (1, 2, 2, 1), "bf16": (1, 2, 2, 1), "f64": (2, 2, 2, 1)}
 
 
 def ptxas_figures(text: str, shape, dtype: str, kv: int = 1,
-                  xi: int = 1) -> str:
+                  xi: int = 1, xil: bool = True) -> str:
     """ptxas -v's registers, stack frame and spill bytes of the ``dtype``
     kernel at ``shape`` without the phase clock (the Shape's template
     arguments, then ``false``, in its mangled name): resident_kernel, or
-    at kv > 1 x tables spmm_kernel, xi of them gathered together."""
+    at kv > 1 x tables spmm_kernel, xi of them gathered together, on x
+    interleaved by column (``xil``) or stacked."""
     name = KERNELS[dtype]
     if kv > 1:
         name = name.replace("resident_kernel", "spmm_kernel")
     want = re.compile(re.escape(name) + "NS_5ShapeILi{}ELi{}ELi{}"
                       "ELb{}EE+Lb0E".format(*shape)
-                      + (f"Li{kv}ELi{xi}E" if kv > 1 else ""))
+                      + (f"Li{kv}ELi{xi}ELb{int(xil)}E" if kv > 1
+                         else ""))
     fig, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -128,7 +141,9 @@ def build_variants(out_dir: str, kv: bool = False) -> dict:
     variant of ``VARIANTS`` (of ``KV_VARIANTS`` with ``kv``), all started
     together.  Raises RuntimeError with nvcc's output on failure."""
     os.makedirs(out_dir, exist_ok=True)
-    flags = ({name: [f"-DK6_XI={xi}"] for name, xi in KV_VARIANTS.items()}
+    flags = ({name: [f"-DK6_XI={x32}", f"-DK6_XI64={x64}",
+                     f"-DK6_XIL={int(xil)}"]
+              for name, (x32, x64, xil) in KV_VARIANTS.items()}
              if kv else
              {name: [f"-D{f}={v}" for f, v in zip(_FLAGS, shape)]
               for name, shape in VARIANTS.items()})
@@ -190,26 +205,28 @@ def kv_arm(arm, csr, plan, dtype, libs, dev, card) -> None:
     meta, arrays = op._meta, op._arrays
     X = np.random.default_rng(5).standard_normal((op.n_cols, KV_LEVER))
     tabs = [op._prep_x(X[:, j]) for j in range(KV_LEVER)]
-    x3d = torch.cat(tabs)
+    x = torch.stack([t.reshape(-1) for t in tabs], 1)     # interleaved
+    stacked = torch.cat(tabs)
     scratch = {}
-    y = spmm_loop(meta, arrays, x3d, KV_LEVER, scratch=scratch)
-    if not torch.equal(y, spmm_loop_plain(meta, arrays, x3d, KV_LEVER)):
+    y = spmm_loop(meta, arrays, x, KV_LEVER, scratch=scratch)
+    if not torch.equal(y, spmm_loop_plain(meta, arrays, x, KV_LEVER)):
         raise AssertionError(f"shipped K6 pass {dtype} differs from its "
                              f"plain version ({arm})")
+    want = (scratch["y2"], scratch["out"])
     entry = f"dasp_k6_lever_{dtype}_kv{KV_LEVER}"
 
-    def run(lib, stamps=None):
-        return launch_entry(getattr(lib, entry), entry, meta, arrays, x3d,
-                            1, stamps, KV_LEVER)
-    for name, (lib, _) in libs.items():
-        if not all(torch.equal(a, b) for a, b in zip(
-                run(lib), (scratch["y2"], scratch["out"]))):
+    def run(name, stamps=None):
+        xin = x if KV_VARIANTS[name][2] else stacked
+        return launch_entry(getattr(libs[name][0], entry), entry, meta,
+                            arrays, xin, 1, stamps, KV_LEVER)
+    for name in libs:
+        if not all(torch.equal(a, b) for a, b in zip(run(name), want)):
             raise AssertionError(f"{name} differs from the shipped K6 pass "
                                  f"({arm} {dtype})")
     per_pass = lambda step: graph_ms(
         lambda: [step() for _ in range(REPS)], 5) / REPS * 1e3
     beside = {"shipped pass": per_pass(
-        lambda: spmm_loop(meta, arrays, x3d, KV_LEVER)),
+        lambda: spmm_loop(meta, arrays, x, KV_LEVER)),
         f"{KV_LEVER} K6 steps": per_pass(
             lambda: [resident_loop(meta, arrays, x, 1) for x in tabs])}
     if dtype != "bf16":
@@ -222,16 +239,17 @@ def kv_arm(arm, csr, plan, dtype, libs, dev, card) -> None:
     us = {name: [] for name in libs}
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
-            us[name].append(per_pass(lambda lib=libs[name][0]: run(lib)))
+            us[name].append(per_pass(lambda name=name: run(name)))
     for name, (lib, text) in libs.items():
         stamps = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=dev)
-        run(lib, stamps)
+        run(name, stamps)
         torch.cuda.synchronize()
         ph = dict(zip(STAMPS, stamps.tolist()))
         i = info(lib, dtype, kv=True)
+        x32, x64, xil = KV_VARIANTS[name]
         fig = ptxas_figures(text, SHIPPED[dtype], dtype, KV_LEVER,
-                            KV_VARIANTS[name])
-        print(f"[levers] {arm} {dtype} kv {KV_LEVER} {name:24s} "
+                            x64 if dtype == "f64" else x32, xil)
+        print(f"[levers] {arm} {dtype} kv {KV_LEVER} {name:32s} "
               f"{us[name][0]:7.2f} / {us[name][1]:7.2f} us a pass (two "
               f"rounds), {us[name][0] / KV_LEVER:.2f} a column; phases "
               "A / R / C / D " + " / ".join(

@@ -166,7 +166,7 @@ def test_bench_spmm_times_per_column(rng, dtype):
     X = rng.standard_normal((csr.n_cols, 5))
     op = SpMVOperator(csr, dtype=dtype, device="cpu", force_streamed=True)
     ys = op.spmm_loop(X)()
-    assert [tuple(y.shape) for y in ys] == [(8, csr.n_rows)]
+    assert [tuple(y.shape) for y in ys] == [(csr.n_rows, 8)]
     res = bench_spmm(op, X, dtype, trials=2)
     assert res.seconds_per_iter > 0 and res.timed_iters >= 1
     assert res.gflops == pytest.approx(

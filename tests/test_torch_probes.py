@@ -305,3 +305,69 @@ def test_colsum_probe_bytes_count_each_input_once(form):
     windows, wins_b = (1, 0) if form == "static" else (3, 3 * 3 * 4)
     assert _colsum_probe.must_move(wins, vals, idx, form, stride) == (
         nv * 1024 * 6 + wins_b + windows * 8 * 128 * 4 + out)
+
+
+@pytest.mark.parametrize("dtype", ("f32", "bf16", "f64"))
+def test_resident_call_bytes_count_each_output_once(dtype):
+    """chip_smoke.resident_bytes' bytes a K6 call must move grow by kv
+    times (the words of an x table that A's columns reach, n_rows output
+    words) over the tables read once: the output at the width the kernel
+    writes it, bf16's pass Y at 2 bytes a word, f32 at a bf16 step's, the
+    padded rows not counted."""
+    import dasp_tpu_torch as dt
+    from dasp_tpu_torch.sparse import mixed_categories
+    csr = mixed_categories(300, np.random.default_rng(0))
+    op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
+    assert op.resident and op._meta.B_pad * 128 > op._meta.n_rows
+    el = 8 if dtype == "f64" else 4
+    y_el = 2 if dtype == "bf16" else el
+    x_used = np.unique(csr.col_idx).size * el
+    call = {kv: chip_smoke.resident_bytes(op, csr, kv)[1]
+            for kv in (1, 2, 4, 8)}
+    tables = call[2] - 2 * (x_used + op._meta.n_rows * y_el)
+    assert tables > 0
+    assert call[1] == tables + x_used + op._meta.n_rows * el
+    for kv in (4, 8):
+        assert call[kv] == tables + kv * (x_used + op._meta.n_rows * y_el)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N__5f3a_00000000_11_resident_cu_9a1bEkernIfLi1EE
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N__5f3a_00000000_11_resident_cu_9a1bEpassIfLi1EE
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   BRA 0x10 ;
+"""
+
+
+@pytest.mark.parametrize("case", ("same", "other build", "changed",
+                                  "renamed", "missing"))
+def test_sass_diff_compares_functions(case):
+    """probes/sass_diff.py: the functions of cuobjdump -sass's output by
+    name (the unnamed namespace's per-build hash left out), each of A's
+    that a substring picks held line by line to B's of the same name, or
+    of the name --rename maps it to."""
+    from dasp_tpu_torch.probes import sass_diff
+    a = sass_diff.functions(_SASS)
+    assert sorted(a) == ["_ZN12ANONEkernIfLi1EE", "_ZN12ANONEpassIfLi1EE"]
+    assert a["_ZN12ANONEkernIfLi1EE"].splitlines()[-1].endswith("EXIT ;")
+    other = (_SASS if case == "same"
+             else _SASS.replace("5f3a", "77c0").replace("9a1b", "0e0e"))
+    names, renames = ["kern"], ()
+    if case == "changed":
+        other = other.replace("EXIT ;", "NOP ;\n        EXIT ;")
+    elif case == "renamed":
+        other = other.replace("passIfLi1", "passIfLb1")
+        names, renames = ["pass"], [("Li1EE$", "Lb1EE")]
+    elif case == "missing":
+        other, names = other.replace("passIf", "passId"), ["pass"]
+    rows = sass_diff.compare(a, sass_diff.functions(other), names, renames)
+    want = {"same": "same", "other build": "same", "renamed": "same",
+            "changed": "DIFFERENT (2 lines)", "missing": "missing"}[case]
+    assert [v for _, v in rows] == [want]
+    if case == "same":
+        assert sass_diff.compare(a, a, ["nothing"]) == []

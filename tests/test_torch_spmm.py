@@ -245,10 +245,10 @@ def test_relabel_f64_matmat():
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f64"])
 def test_spmm_fn_equals_spmv_fn(dtype):
     """On the device side, on the tables without their K6 schedule,
-    spmm_fn's row j equals the reference-order spmv_fn on table j bit for
+    spmm_fn's column j equals the reference-order spmv_fn on table j bit for
     bit (K5 slice j is K1/K3 on it, and the glue is the same code with the
     vector as a batch dimension).  ``device_call``, one K6 step, sums in
-    another order: it is held to the golden at TOL, as row j is, on the
+    another order: it is held to the golden at TOL, as column j is, on the
     error scaled by the row's mass max(|A||x|, 1) (x stays f32 in bf16,
     so a row's error follows its mass, and some rows here cancel)."""
     rng = np.random.default_rng(0)
@@ -256,20 +256,20 @@ def test_spmm_fn_equals_spmv_fn(dtype):
     op = dt.SpMVOperator(csr, dtype=dtype, device="cpu")
     X = rng.standard_normal((csr.n_cols, cb.KV_SPMM))
     xs = [op._prep_x(X[:, j]) for j in range(cb.KV_SPMM)]
-    Y = cb.spmm_fn(op._meta, dict(op._arrays, resident=None),
-                   torch.cat(xs))
-    assert Y.shape == (cb.KV_SPMM, csr.n_rows)
+    x = torch.stack([t.reshape(-1) for t in xs], 1)   # interleaved
+    Y = cb.spmm_fn(op._meta, dict(op._arrays, resident=None), x)
+    assert Y.shape == (csr.n_rows, cb.KV_SPMM)
     G = _golden(csr, X, dtype)
     absA = tsp.CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
                          np.abs(csr.values))
     mass = np.maximum(_golden(absA, np.abs(X), dtype), 1.0)
     for j, x2d in enumerate(xs):
-        assert torch.equal(Y[j], _glue_call(op, x2d))
-        for y in (op.device_call(x2d), Y[j]):
+        assert torch.equal(Y[:, j], _glue_call(op, x2d))
+        for y in (op.device_call(x2d), Y[:, j]):
             err = np.abs(op.perm_out(cb._to_host(y)) - G[:, j]) / mass[:, j]
             assert err.max() <= TOL[dtype]
     with pytest.raises(ValueError, match="kv"):
-        cb.spmm_fn(op._meta, op._arrays, torch.cat(xs), 4)
+        cb.spmm_fn(op._meta, op._arrays, x, 4)
 
 
 def test_k5_levers_variants_match_the_source():

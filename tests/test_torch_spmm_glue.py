@@ -115,6 +115,12 @@ def _glue(op):
     return dict(op._arrays, resident=None)
 
 
+def _interleave(tabs):
+    """x tables (s_rows, 128) -> an SpMM pass's x, interleaved by column:
+    (s_rows*128, kv), row i word i of every table."""
+    return torch.stack([t.reshape(-1) for t in tabs], 1)
+
+
 def _glue_call(op, x2d):
     """The reference-order single-vector SpMV: ``spmv_fn`` on the
     operator's tables without their K6 schedule."""
@@ -167,10 +173,10 @@ def test_spmm_fn_batched_matches_spmv_fn_and_pallas(name, dtype,
     X = rng.standard_normal((csr.n_cols, 5))
     kv = 4
     xs = [op._prep_x(X[:, j]) for j in range(kv)]
-    Y4 = cb.spmm_fn(op._meta, _glue(op), torch.cat(xs), kv)
-    assert Y4.shape == (kv, csr.n_rows)
+    Y4 = cb.spmm_fn(op._meta, _glue(op), _interleave(xs), kv)
+    assert Y4.shape == (csr.n_rows, kv)
     for j, x2d in enumerate(xs):
-        assert torch.equal(Y4[j], _glue_call(op, x2d)), j
+        assert torch.equal(Y4[:, j], _glue_call(op, x2d)), j
     Y = op.matmat(X)
     assert Y.shape == (csr.n_rows, 5) and Y.dtype == np.float64
     for j in range(5):
@@ -222,8 +228,8 @@ def test_spmm_column_independent_of_neighbours(name, dtype, monkeypatch):
                     xb.copy_(torch.from_numpy(
                         rng.standard_normal(tuple(xb.shape))))
                 xb[j] = x
-                y = cb.spmm_fn(op._meta, _glue(op), xb.view(-1, 128),
-                               kv)[j]
+                y = cb.spmm_fn(op._meta, _glue(op), _interleave(xb),
+                               kv)[:, j]
                 want = y if want is None else want
                 assert torch.equal(y, want), (kv, j, fill)
     assert torch.equal(want, _glue_call(op, x))
@@ -262,12 +268,12 @@ def test_matmat_subplan_runs_no_single_vector_colsum(dtype, monkeypatch):
     _check_golden(csr, X, Y, dtype)
     calls.update(fused=0)
     Xp = np.pad(X, ((0, 0), (0, cb.KV_SPMM - 5)))     # zero padding
-    x3d = torch.cat([op._prep_x(Xp[:, j]) for j in range(cb.KV_SPMM)])
-    Yg = cb.spmm_fn(op._meta, _glue(op), x3d)
+    x = _interleave([op._prep_x(Xp[:, j]) for j in range(cb.KV_SPMM)])
+    Yg = cb.spmm_fn(op._meta, _glue(op), x)
     streams = len(op._meta.streams) + len(op._meta.res.streams)
     assert calls == {"single": 0, "multi": streams, "outgather": 2,
                      "fused": 0}
-    _check_golden(csr, X, op.perm_out(cb._to_host(Yg).T)[:, :5], dtype)
+    _check_golden(csr, X, op.perm_out(cb._to_host(Yg))[:, :5], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
