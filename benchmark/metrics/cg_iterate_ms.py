@@ -1,0 +1,8 @@
+"""Mean milliseconds of ``cg.iterate``, the program's span inside each solve
+of the window (``examples/cg_solver.py:cg_solve``)."""
+
+from benchmark.harness.spans import cg_phase_ms
+
+
+def read(run):
+    return cg_phase_ms(run, "cg.iterate")

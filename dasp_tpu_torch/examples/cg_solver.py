@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from .. import DaspConfig, SpMVOperator, from_coo
+from .. import DaspConfig, SpMVOperator, from_coo, trace
 from ..ops.cuda_backend import _to_host
 from ..utils import graphed
 from ._common import matvec_into, require_shared_space, x_dtype, x_table
@@ -77,20 +77,57 @@ class CGIteration:
         rs.copy_(rs_new)
 
 
+def _allocs(device) -> dict:
+    """Allocation calls so far on a card: cudaMalloc (the caching
+    allocator's ``num_device_alloc``) and cudaHostAlloc (the pinned host
+    allocator's ``num_host_alloc``).  The nested statistics: flattening
+    them, as ``memory_stats()`` does, took ~200 µs a read on an H100's
+    host."""
+    mem = torch.cuda.memory
+    return {"device_allocs": mem.memory_stats_as_nested_dict(device).get(
+                "num_device_alloc", 0),
+            "host_allocs": mem.host_memory_stats_as_nested_dict().get(
+                "num_host_alloc", 0)}
+
+
 def cg_solve(op, b: np.ndarray, tol: float = 1e-6, maxiter: int = 500):
     """CG on the operator's device, in its x dtype (f32 for an f32 or bf16
     operator, fp64 for an f64 one).  Returns (x in original order, the
-    residual norm, the iterations run)."""
-    require_shared_space(op, "cg_solve()")
-    dt = np.float64 if op.dtype == "f64" else np.float32
-    # encode b on entry, decode x on exit
-    state = CGIteration(op, op.perm_in(np.asarray(b, dtype=dt)))
-    rs, it = float(state.rs), 0
-    while rs > tol * tol and it < maxiter:
-        state.step()
-        rs = float(state.rs)           # the iteration's one read-back
-        it += 1
-    return op.perm_out(_to_host(state.x)), math.sqrt(rs), it
+    residual norm, the iterations run).
+
+    One ``cg.solve`` span (``dasp_tpu_torch.trace``) holds three that tile
+    it: ``cg.setup`` (encode and upload b, build the state, capture its
+    graph, read rs), ``cg.iterate`` (the replays and read-backs; counts
+    ``iterations``) and ``cg.finish`` (decode x, free the state, its graph
+    and pool).  On a card ``cg.solve`` counts the solve's allocation calls,
+    ``device_allocs`` and ``host_allocs`` (``_allocs``); on the CPU, which
+    keeps no allocator statistics, it counts ``state_tensors``, the
+    tensors the state holds."""
+    cuda = op.device.type == "cuda"
+    with trace.span("cg.solve"):
+        before = _allocs(op.device) if cuda else None
+        with trace.span("cg.setup"):
+            require_shared_space(op, "cg_solve()")
+            dt = np.float64 if op.dtype == "f64" else np.float32
+            # encode b on entry, decode x on exit
+            state = CGIteration(op, op.perm_in(np.asarray(b, dtype=dt)))
+            rs, it = float(state.rs), 0
+        with trace.span("cg.iterate"):
+            while rs > tol * tol and it < maxiter:
+                state.step()
+                rs = float(state.rs)   # the iteration's one read-back
+                it += 1
+            trace.count("iterations", it)
+        with trace.span("cg.finish"):
+            x = op.perm_out(_to_host(state.x))
+            n_tensors = sum(map(torch.is_tensor, vars(state).values()))
+            del state                  # its graph, pool and vectors
+        if cuda:
+            for key, n in _allocs(op.device).items():
+                trace.count(key, n - before[key])
+        else:
+            trace.count("state_tensors", n_tensors)
+    return x, math.sqrt(rs), it
 
 
 def cg_solve_f64(op, b: np.ndarray, tol: float = None, maxiter: int = 4000):

@@ -44,12 +44,12 @@ plain PyTorch versions, so the whole path runs on either device.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..sparse import CSRMatrix
 from ..utils import gc_paused
 from ..wplan import WPlan, SUB, LANES, LONG_PACK, K_SOURCES, build_wplan
@@ -745,18 +745,24 @@ class TorchSpMV:
                  force_streamed: bool = False):
         from ..config import DEFAULT_CONFIG
         from . import resident
-        t0 = time.perf_counter()
-        if dtype not in DTYPES:
-            raise ValueError(f"dtype {dtype!r} must be one of {DTYPES}")
-        self.plan = (csr if isinstance(csr, WPlan)
-                     else build_wplan(csr, config or DEFAULT_CONFIG))
-        self.dtype = dtype
-        self.device = torch.device(device)
-        self._meta, arrays = plan_to_arrays(self.plan, dtype)
-        resident.prepare(self._meta, arrays)
-        self.force_streamed = force_streamed
-        self._arrays = arrays_to_device(self._meta, arrays, self.device)
-        self.preprocess_seconds = time.perf_counter() - t0
+        with trace.span("op.setup") as setup:
+            if dtype not in DTYPES:
+                raise ValueError(f"dtype {dtype!r} must be one of {DTYPES}")
+            self.plan = (csr if isinstance(csr, WPlan)
+                         else build_wplan(csr, config or DEFAULT_CONFIG))
+            self.dtype = dtype
+            self.device = torch.device(device)
+            with trace.span("op.lower"):
+                self._meta, arrays = plan_to_arrays(self.plan, dtype)
+            with trace.span("op.schedule"):
+                resident.prepare(self._meta, arrays)
+            self.force_streamed = force_streamed
+            with trace.span("op.upload"):
+                self._arrays = arrays_to_device(self._meta, arrays,
+                                                self.device)
+                if self.device.type == "cuda":   # the copies' tail
+                    torch.cuda.synchronize(self.device)
+        self.preprocess_seconds = setup.seconds
 
     n_rows = property(lambda self: self.plan.n_rows)
     n_cols = property(lambda self: self.plan.n_cols)

@@ -64,6 +64,7 @@ import numpy as np
 
 from .config import DaspConfig, DEFAULT_CONFIG
 from .sparse import CSRMatrix, from_coo
+from .trace import phase, span
 from .utils import gc_paused
 
 LANES = 128
@@ -660,6 +661,7 @@ def _choose_w8(slens: np.ndarray, threshold: float) -> int:
 
 
 @gc_paused
+@span("pack")
 def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
                 p_cap: int = 32, sym_ok: bool = True,
                 pin_classes: Optional[Dict[Tuple[int, int],
@@ -670,8 +672,9 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     # partial y's sum).
     # p_cap <= 32 keeps slot metadata in 15 bits (round<<10|q<<7|lam), so
     # the index stream ships as int16 — 25% less HBM traffic at fp32.
+    phase("pack.order")
     csr.check()
-    import os as _os, time as _time
+    import time as _time
     # Host-speed probe stored next to the pack wall: this box's ONE
     # burst-credit vCPU drifts 87x (fixed numpy probe 15 ms - 1.3 s), so
     # a raw pack_seconds is uninterpretable on its own.  The same
@@ -684,13 +687,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         _t0 = _time.perf_counter()
         _pa.argsort()
         probe_ms = (_time.perf_counter() - _t0) * 1e3
-    _t = [_time.perf_counter()]
-
-    def _pt(tag):
-        if _os.environ.get("DASP_PACK_TRACE"):
-            now = _time.perf_counter()
-            print(f"[pack] {tag:10s} +{now - _t[0]:.2f}s", flush=True)
-            _t[0] = now
 
     col_perm = row_perm = None
     if config.relabel != "off" and csr.nnz:
@@ -745,7 +741,7 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     ovf_v: List[np.ndarray] = []
 
 
-    _pt('sell')
+    phase("pack.rows")
     # ---- per-block SELL slices + per-block remainder tails --------------
     # lane assignment per block: sell rows length-desc, pads last.
     block_lane_of_row = np.full(n, -1, dtype=np.int32)     # lane in slice b
@@ -1134,7 +1130,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
             packets.append(_Packet("sell", w8, _p_class(p_used, p_cap),
                                    tiles, sid, stride=s))
 
-    _pt('buckets')
     # ---- length-bucketed shared slices ----------------------------------
     # Rows with 1..SHORT_MAX nnz pack into strided shared slices ({1,2}
     # at stride 2, {3,4} at stride 4): 8/stride row LEVELS share each lane
@@ -1268,7 +1263,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
                 cols_all[eidx], vals_all[eidx],
                 np.repeat(sel_rows, ln_r)))
             vreg_total += n_new * bw8
-        _pt('buckets_cls')
         if short_meta:
             strides_flat = [m[2] for m in short_meta
                             for _ in range(m[3])]
@@ -1284,9 +1278,7 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
             parts = list(zip(np.split(le, sp), np.split(ie, sp),
                              np.split(ce, sp), np.split(vae, sp)))
             erows = np.split(re_, sp)
-            _pt('buckets_cat')
             routed = _route_vregs_batch(parts, p_cap, strides_flat)
-            _pt('buckets_route')
             cur = 0
             for bi, sid, s, bw8 in short_meta:
                 tiles = [(routed[cur + v][0], routed[cur + v][1],
@@ -1303,7 +1295,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
                     ovf_v.append(pt[3][om])
 
 
-    _pt('rem')
     # ---- rem2: re-route conflict rejects per block ----------------------
     # Elements the first pass could not route get a second, sparser slice
     # per block (fresh routing tables); remaining rejects go to the COO
@@ -1554,7 +1545,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
             ovf_c.append(o_c)
             ovf_v.append(o_v)
 
-    _pt('long')
     # ---- long rows + fragments (original row order -> scalar order) -----
     long_rows = np.flatnonzero(is_long)
     scalar_owners = sorted(set(long_rows.tolist()) | set(frags))
@@ -1614,14 +1604,12 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
                     cls_arr, dregs)
 
         res_long = res_frag = None
-        _pt('long_prep')
         if long_rows.size:
             if rows_sorted:
                 # zero-copy: route straight out of the CSR streams
                 rs = rpt[long_rows]
                 res_long = _pack_call(rs, rs + lens[long_rows],
                                       cols_all, vals_all)
-                _pt('long_nat')
                 if res_long[6].size:       # dregs: absolute CSR positions
                     d = res_long[6]
                     ovf_r.append(np.searchsorted(rpt, d, side="right") - 1)
@@ -1668,7 +1656,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
                 ovf_r.append(np.asarray(frag_rows, dtype=np.int64)[ords])
                 ovf_c.append(cat_c[d])
                 ovf_v.append(cat_v[d])
-        _pt('long_elems')
 
         def _take(res, state, oi, row):
             vt_all, it_all, wins_cat, win_off, owner_ord, cls_arr, _ = res
@@ -1693,7 +1680,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
             else:
                 _take(res_frag, st_f, fi, row)
                 fi += 1
-        _pt('long_route')
         _native_long_done = True
 
     for row in ([] if _native_long_done else scalar_owners):
@@ -1767,7 +1753,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     # rejected elements just cost an extra sparsely-filled vreg instead of
     # falling to the COO fallback, whose XLA element-gather runs at
     # ~0.05 Gelem/s).  Depth 3 leaves only conflict-of-conflict dregs.
-    _pt('long_elems')
     row_tiles: Dict[int, List] = {int(row): [] for row in scalar_owners}
     col_cat = (np.concatenate(row_cols) if row_cols
                else np.zeros(0, dtype=np.int64))
@@ -1822,7 +1807,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         val_cat = np.concatenate(nxt_v)
         sizes_a = np.asarray(nxt_sizes, dtype=np.int64)
         owners = nxt_owner
-    _pt('long_route')
     for row in scalar_owners:
         # Class each vreg by ITS OWN window count: a long row's column-sorted
         # head has 1-2 windows while its scattered tail can use 32 — one
@@ -1838,7 +1822,7 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         for cls, tiles in by_cls.items():
             packets.append(_Packet("long", len(tiles), cls, tiles, row))
 
-    _pt('assembly')
+    phase("pack.tables")
     # ---- assembly --------------------------------------------------------
     key_mass: Dict[Tuple[int, int], int] = {}     # (cls, stride) -> vregs
     for q in packets:
@@ -1862,7 +1846,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         final_key = merge_class_keys(
             key_mass, s_rows=(-(-max(csr.n_cols, 1) // VREG)) * SUB)
 
-    _pt('asm_merge')
     key_list = sorted({final_key[(p.cls, p.stride)] for p in packets})
     streams: List[WStream] = []
     sell_segments: List[SellSegment] = []
@@ -1989,7 +1972,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     n_y2_rows = out_row + n_long_rows
     Z = n_y2_rows                                   # the all-zero row
 
-    _pt('outtab')
     # ---- output-gather tables -------------------------------------------
     # block b's primary y2 row = its slice's first row + its level within
     # the (possibly strided, multi-block) slice
@@ -2002,7 +1984,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
     # then length buckets, rem levels, long-scalar rows — each appended
     # only when the block actually uses it (the slot budget above keeps
     # the total within K_SOURCES).
-    _pt('outtab_blk')
     # Vectorized source-slot allocation (the per-block Python loop cost
     # seconds at B ~ 20-40k blocks on the 1-vCPU build box): every source
     # family writes its blocks' (src row, lane perm) in one fancy-indexed
@@ -2101,7 +2082,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
             _emit(idx, which[idx], perm)
     # unused k slots keep Z with perm 0 (Z is all zeros)
 
-    _pt('outsrc')
     overflow = None
     if ovf_r:
         orows = np.concatenate(ovf_r)
@@ -2165,7 +2145,6 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         # probe skipped)
         "pack_probe_ms": round(probe_ms, 1),
     }
-    _pt('census')
     plan = WPlan(
         n_rows=n, n_cols=csr.n_cols, nnz=csr.nnz, config=config,
         s_rows=(-(-max(csr.n_cols, 1) // VREG)) * SUB,
@@ -2175,9 +2154,8 @@ def build_wplan(csr: CSRMatrix, config: DaspConfig = DEFAULT_CONFIG,
         out_perm=out_perm.reshape(B * K_SOURCES, LANES),
         n_y2_rows=int(n_y2_rows), overflow=overflow,
         census=census, stats=stats, col_perm=col_perm, row_perm=row_perm)
-    _pt('plan_ctor')
+    phase("pack.check")
     plan.check()
-    _pt('check')
     return plan
 
 

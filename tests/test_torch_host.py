@@ -36,28 +36,48 @@ COPIED = ["config.py", "sparse.py", "relabel.py", "wplan.py", "plan.py",
           "io/__init__.py", "io/mmio.py", "io/native.py",
           "bench/suite.py", "bench/fem.py", "bench/record.py",
           "analyze.py"]
-# the edits a copy carries, one each: bench/fem.py's docstring cites the
-# upstream README by an absolute path of the machine it was written on (the
-# copy cites it as "reference README.md"); wplan.py's long-row packer
-# tested `_nat is not None`, but _native_router() returns False, not None,
-# without native/libdasp_host.so, so the no-library fallback crashed on
-# long rows (the copy tests `_nat`; see test_no_native_router_packs_long_rows);
-# io/native.py's _find_lib ran a bare `make`, which writes the library in
-# place, so a process loading it during another's build read a short file
-# (the copy builds through io/build.ensure_built, under a lock, to a name of
-# its own, renamed whole; see
-# test_concurrent_builds_never_expose_a_short_library)
-COPY_EDITS = {"bench/fem.py": (rb"``/[\w/]+/README\.md",
-                               b"``reference README.md"),
-              "wplan.py": (rb"if _nat is not None and scalar_owners",
-                           b"if _nat and scalar_owners"),
-              "io/native.py": (
+# the edits a copy carries, each (pattern, replacement, times it applies):
+# bench/fem.py's docstring cites the upstream README by an absolute path of
+# the machine it was written on (the copy cites it as "reference
+# README.md"); wplan.py's long-row packer tested `_nat is not None`, but
+# _native_router() returns False, not None, without native/libdasp_host.so,
+# so the no-library fallback crashed on long rows (the copy tests `_nat`;
+# see test_no_native_router_packs_long_rows); wplan.py's pack phases are
+# spans of dasp_tpu_torch.trace (`pack` around build_wplan, `pack.order`,
+# `pack.rows`, `pack.tables` and `pack.check` where the reference's
+# printed marks `sell`, `assembly` and `plan_ctor` sit), and its other 18
+# marks and their printer are gone; io/native.py's _find_lib ran
+# a bare `make`, which writes the library in place, so a process loading
+# it during another's build read a short file (the copy builds through
+# io/build.ensure_built, under a lock, to a name of its own, renamed
+# whole; see test_concurrent_builds_never_expose_a_short_library)
+COPY_EDITS = {"bench/fem.py": [(rb"``/[\w/]+/README\.md",
+                                b"``reference README.md", 1)],
+              "wplan.py": [
+                  (rb"if _nat is not None and scalar_owners",
+                   b"if _nat and scalar_owners", 1),
+                  (rb"\nfrom \.utils import gc_paused\n",
+                   b"\nfrom .trace import phase, span\n"
+                   b"from .utils import gc_paused\n", 1),
+                  (rb"@gc_paused\ndef build_wplan\(",
+                   b"@gc_paused\n@span(\"pack\")\ndef build_wplan(", 1),
+                  (rb"    csr\.check\(\)\n    import os as _os, time as _time\n",
+                   b"    phase(\"pack.order\")\n    csr.check()\n"
+                   b"    import time as _time\n", 1),
+                  (rb"    _t = \[_time\.perf_counter\(\)\]\n\n"
+                   rb"    def _pt\(tag\):\n(?:        .*\n)+", b"", 1),
+                  (rb"_pt\('sell'\)", b"phase(\"pack.rows\")", 1),
+                  (rb"_pt\('assembly'\)", b"phase(\"pack.tables\")", 1),
+                  (rb"_pt\('plan_ctor'\)", b"phase(\"pack.check\")", 1),
+                  (rb"\n *_pt\('\w+'\)(?=\n)", b"", 18)],
+              "io/native.py": [(
                   rb"(?s)(new native entry points\.)\n    if os\.path\.exists"
                   rb"\(os\.path\.join\(srcdir, \"Makefile\"\)\):\n.*?"
                   rb"\n    return None\n",
                   rb"\1  The\n    # build runs under a lock and lands whole "
                   rb"(build.ensure_built).\n    from .build import "
-                  rb"ensure_built\n    return ensure_built(srcdir=srcdir)\n")}
+                  rb"ensure_built\n    return ensure_built(srcdir=srcdir)\n",
+                  1)]}
 
 
 def _split_fixture(rng, n=26 * 64 * 128):
@@ -134,9 +154,9 @@ def test_host_module_is_identical_copy(rel):
         ref = f.read()
     with open(os.path.join(REPO, "dasp_tpu_torch", rel), "rb") as f:
         ours = f.read()
-    if rel in COPY_EDITS:
-        ref, n = re.subn(*COPY_EDITS[rel], ref)
-        assert n == 1, f"dasp_tpu/{rel}: the edited citation moved"
+    for pattern, repl, times in COPY_EDITS.get(rel, ()):
+        ref, n = re.subn(pattern, repl, ref)
+        assert n == times, f"dasp_tpu/{rel}: an edited passage moved"
     assert ours == ref, f"dasp_tpu_torch/{rel} drifted from dasp_tpu/{rel}"
 
 
