@@ -7,8 +7,11 @@ inside one jit; here the loop is Python over device tensors: one CG
 iteration is captured once in a CUDA graph (on a CPU operator it runs as
 it is), and the host replays it and reads the squared residual back, so
 that the stopping test ``rs > tol**2 and it < maxiter`` is evaluated every
-iteration and the iteration count is the reference's.  ``iteration_costs``
-measures what that read-back costs per iteration.
+iteration and the iteration count is the reference's.  The state, the
+graph and its pool are built by an operator's first solve and kept on the
+operator for as long as it lives: every later solve copies its b in and
+resets them.  ``iteration_costs`` measures what the read-back costs per
+iteration.
 
 Usage: python -m dasp_tpu_torch.examples.cg_solver [n] [dtype] [device]
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import math
 import sys
+import threading
 import time
 
 import numpy as np
@@ -45,20 +49,27 @@ class CGIteration:
     """CG's state on the operator's device, in its internal index space
     (a symmetric relabel keeps x and y in one space, and CG's dot products
     are permutation-invariant), and ``step()``, one iteration in place: a
-    CUDA-graph replay on a card, ``raw_step`` itself on the CPU."""
+    CUDA-graph replay on a card, ``raw_step`` itself on the CPU.  The graph
+    reads and writes these tensors where they lie, so a new solve on the
+    same state is ``restart(b)``: nothing is allocated or captured."""
 
     def __init__(self, op, b_int: np.ndarray):
-        self.b = torch.from_numpy(np.ascontiguousarray(b_int)).to(
-            x_dtype(op)).to(op.device)
-        self.x = torch.zeros_like(self.b)
-        self.r = self.b.clone()
-        self.p = self.b.clone()
-        self.rs = torch.dot(self.b, self.b)
+        kw = {"dtype": x_dtype(op), "device": op.device}
+        self.b, self.x, self.r, self.p = (
+            torch.zeros(b_int.shape, **kw) for _ in range(4))
+        self.rs = torch.zeros((), **kw)
         self.matvec = matvec_into(op, x_table(op))
+        self.restart(b_int)
         self.step = self.raw_step
         if op.device.type == "cuda":
             self.step = graphed(self.raw_step)
             self.reset()               # the warm-up calls moved the state
+
+    def restart(self, b_int: np.ndarray) -> None:
+        """Start a solve of ``b_int`` (in the internal index space): copy
+        it into ``b``, in b's dtype, then ``reset()``."""
+        self.b.copy_(torch.from_numpy(np.ascontiguousarray(b_int)))
+        self.reset()
 
     def reset(self) -> None:
         self.x.zero_()
@@ -95,22 +106,41 @@ def cg_solve(op, b: np.ndarray, tol: float = 1e-6, maxiter: int = 500):
     operator, fp64 for an f64 one).  Returns (x in original order, the
     residual norm, the iterations run).
 
+    The first solve on an operator builds its ``CGIteration`` (the
+    vectors, the x table and, on a card, the captured graph and its pool)
+    and keeps it on the operator, which holds it as long as it lives.
+    Every later solve copies its b into that state and resets it
+    (``restart``), allocating, capturing and freeing nothing; it runs the
+    same kernels on the same state from the same ``reset()``, so its x,
+    residual and iterations are bitwise a fresh operator's.  A lock of
+    the operator's holds each solve over its whole span: one solve at a
+    time runs on an operator.
+
     One ``cg.solve`` span (``dasp_tpu_torch.trace``) holds three that tile
-    it: ``cg.setup`` (encode and upload b, build the state, capture its
-    graph, read rs), ``cg.iterate`` (the replays and read-backs; counts
-    ``iterations``) and ``cg.finish`` (decode x, free the state, its graph
-    and pool).  On a card ``cg.solve`` counts the solve's allocation calls,
-    ``device_allocs`` and ``host_allocs`` (``_allocs``); on the CPU, which
-    keeps no allocator statistics, it counts ``state_tensors``, the
-    tensors the state holds."""
+    it: ``cg.setup`` (encode and upload b, build the state or restart the
+    kept one, read rs; counts ``reused``, 0 where it built the state and 1
+    where it restarted it), ``cg.iterate`` (the replays and read-backs;
+    counts ``iterations``) and ``cg.finish`` (decode x).  On a card
+    ``cg.solve`` counts the solve's allocation calls, ``device_allocs``
+    and ``host_allocs`` (``_allocs``); on the CPU, which keeps no
+    allocator statistics, it counts ``state_tensors``, the tensors the
+    state holds."""
     cuda = op.device.type == "cuda"
-    with trace.span("cg.solve"):
+    lock = op.__dict__.setdefault("_cg_lock", threading.Lock())
+    with lock, trace.span("cg.solve"):
         before = _allocs(op.device) if cuda else None
         with trace.span("cg.setup"):
             require_shared_space(op, "cg_solve()")
             dt = np.float64 if op.dtype == "f64" else np.float32
             # encode b on entry, decode x on exit
-            state = CGIteration(op, op.perm_in(np.asarray(b, dtype=dt)))
+            b_int = op.perm_in(np.asarray(b, dtype=dt))
+            state = op.__dict__.get("_cg_state")
+            if state is None:
+                state = op._cg_state = CGIteration(op, b_int)
+                trace.count("reused", 0)
+            else:
+                state.restart(b_int)
+                trace.count("reused", 1)
             rs, it = float(state.rs), 0
         with trace.span("cg.iterate"):
             while rs > tol * tol and it < maxiter:
@@ -119,14 +149,16 @@ def cg_solve(op, b: np.ndarray, tol: float = 1e-6, maxiter: int = 500):
                 it += 1
             trace.count("iterations", it)
         with trace.span("cg.finish"):
-            x = op.perm_out(_to_host(state.x))
-            n_tensors = sum(map(torch.is_tensor, vars(state).values()))
-            del state                  # its graph, pool and vectors
+            x = _to_host(state.x)
+            # on the CPU that is the kept x itself, which the next solve
+            # resets
+            x = op.perm_out(x if cuda else x.copy())
         if cuda:
             for key, n in _allocs(op.device).items():
                 trace.count(key, n - before[key])
         else:
-            trace.count("state_tensors", n_tensors)
+            trace.count("state_tensors",
+                        sum(map(torch.is_tensor, vars(state).values())))
     return x, math.sqrt(rs), it
 
 

@@ -4,6 +4,7 @@ JAX package's examples (interpret-mode Pallas), iterate for iterate."""
 
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -24,6 +25,24 @@ EX = os.path.join(os.path.dirname(os.path.dirname(
 sys.path.insert(0, EX)
 
 SHARED = dt.DaspConfig(row_sort="off")
+
+
+def _cg(op, b, tol=None):
+    """cg_solve_f64 with its own tolerance where ``tol`` is None."""
+    if tol is None:
+        return cg_solver.cg_solve_f64(op, b, maxiter=400)
+    return cg_solver.cg_solve(op, b, tol=tol, maxiter=300)
+
+
+def _reused(n):
+    """The ``reused`` counts of the last ``n`` ``cg.setup`` spans."""
+    return [r.counts.get("reused") for r in dt.trace.records()
+            if r.name == "cg.setup"][-n:]
+
+
+def _same_solve(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:], (got[1:], want[1:])
 
 
 def _same_matrix(ours, ref):
@@ -105,7 +124,7 @@ def test_cg_bf16_operator_runs_in_f32(rng):
     assert np.linalg.norm(b - csr.spmv(x)) / np.linalg.norm(b) < 5e-2
 
 
-def test_cg_matches_jax_example():
+def _cg_against_jax(solved_before: bool):
     import cg_solver as ref_cg
     csr = cg_solver.build_spd(512, np.random.default_rng(0))
     ref_csr = ref_cg.build_spd(512, np.random.default_rng(0))
@@ -114,13 +133,89 @@ def test_cg_matches_jax_example():
     op = dt.SpMVOperator(csr, dtype="f32", device="cpu", config=SHARED)
     ref_op = dasp_tpu.SpMVOperator(ref_csr, dtype="f32", backend="pallas",
                                    config=dasp_tpu.DaspConfig(row_sort="off"))
+    if solved_before:
+        cg_solver.cg_solve(op, np.random.default_rng(2).standard_normal(512),
+                           tol=1e-5, maxiter=300)
     x, res, iters = cg_solver.cg_solve(op, b, tol=1e-5, maxiter=300)
+    assert _reused(1) == [int(solved_before)]
     x_ref, res_ref, iters_ref = ref_cg.cg_solve(ref_op, b, tol=1e-5,
                                                 maxiter=300)
     x_ref = np.asarray(x_ref, dtype=np.float64)
     assert abs(iters - int(iters_ref)) <= 2, (iters, int(iters_ref))
     assert (np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)) < 1e-4
     assert res <= 1e-5 and float(res_ref) <= 1e-5
+
+
+def test_cg_matches_jax_example():
+    _cg_against_jax(solved_before=False)
+
+
+def test_cg_on_a_kept_state_matches_jax_example():
+    """The path every solve after an operator's first takes, against the
+    reference."""
+    _cg_against_jax(solved_before=True)
+
+
+def test_cg_keeps_one_state_per_operator(rng):
+    """b1, b2, b1 on one operator: the first solve builds the state, the
+    others restart it; the third is bitwise the first, and a later solve
+    leaves the caller's b and the x an earlier one returned alone."""
+    csr = cg_solver.build_spd(512, rng)
+    op = dt.SpMVOperator(csr, dtype="f64", device="cpu", config=SHARED)
+    b1, b2 = rng.standard_normal((2, csr.n_rows))
+    b1_given = b1.copy()
+    first = _cg(op, b1)
+    state, x1 = op._cg_state, first[0].copy()
+    _cg(op, b2)
+    third = _cg(op, b1)
+    assert _reused(3) == [0, 1, 1] and op._cg_state is state
+    np.testing.assert_array_equal(first[0], x1)
+    np.testing.assert_array_equal(b1, b1_given)
+    _same_solve(third, first)
+    assert first[2] > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [("f64", None), ("f32", 1e-5),
+                                       ("bf16", 1e-2)])
+def test_cg_on_a_kept_state_is_a_fresh_operators_solve(rng, dtype, tol):
+    csr = cg_solver.build_spd(256, rng)   # 4 and -1 are exact in bf16
+    kept = dt.SpMVOperator(csr, dtype=dtype, device="cpu", config=SHARED)
+    b1, b2 = rng.standard_normal((2, csr.n_rows))
+    _cg(kept, b1, tol)
+    got = _cg(kept, b2, tol)
+    fresh = dt.SpMVOperator(csr, dtype=dtype, device="cpu", config=SHARED)
+    want = _cg(fresh, b2, tol)
+    assert _reused(3) == [0, 1, 0]
+    _same_solve(got, want)
+
+
+def test_cg_runs_one_solve_at_a_time_per_operator(rng):
+    """Eight threads solving on one operator each get the serial answers:
+    the operator's lock holds each solve over its whole span, so none
+    runs on the state while another does."""
+    csr = cg_solver.build_spd(256, rng)
+    op = dt.SpMVOperator(csr, dtype="f64", device="cpu", config=SHARED)
+    bs = rng.standard_normal((4, csr.n_rows))
+    want = [_cg(op, b) for b in bs]
+    got = {}
+
+    def work(i):
+        for k in range(3):
+            got[i, k] = _cg(op, bs[(i + k) % 4])
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert len(got) == 24
+    for (i, k), solve in got.items():
+        _same_solve(solve, want[(i + k) % 4])
 
 
 def test_pagerank_matches_jax_example():
