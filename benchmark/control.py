@@ -31,21 +31,6 @@ def _seeds(text: str) -> list:
     return out
 
 
-def control_outputs(kind, a, below: str, device) -> None:
-    """Put the control's outputs where the kind keeps the program's."""
-    from benchmark.harness import drive
-    from benchmark.reference.lower import cg_below, product_below
-    if isinstance(kind, drive.Cg):
-        kind.kept = [(k, cg_below(a, b, float(kind.p["rtol"]),
-                                  int(kind.p["maxiter"]), below, device)[0])
-                     for k, b in enumerate(kind.pool)]
-        kind.failed = 0
-    elif isinstance(kind, drive.Chain):
-        kind.y = product_below(a, kind.x, below)
-    else:
-        kind.y = product_below(a, kind.X, below)
-
-
 def readings(spec, workloads, seeds, control_seeds, seconds: float,
              device: str = "cuda"):
     """Yield (workload, side, seed, {check: value}) for the program on
@@ -55,6 +40,7 @@ def readings(spec, workloads, seeds, control_seeds, seconds: float,
     from benchmark.harness import cell, drive
     from benchmark.reference.lower import BELOW
     cells = [spec.cell(w) for w in workloads]
+    kinds = {c.name: spec.kind(c.traffic["kind"]) for c in cells}
     config = cells[0].config
     assert all(c.config == config for c in cells), "one configuration"
     dev = torch.device(device)
@@ -75,15 +61,13 @@ def readings(spec, workloads, seeds, control_seeds, seconds: float,
         for c in cells:
             op = cell.operator(plan, config, c.traffic, dev)[0]
             if seed in seeds:
-                kind = drive.KINDS[c.traffic["kind"]](op, a, c.traffic,
-                                                      cell.seeds(seed)[1])
+                kind = kinds[c.name](op, a, c.traffic, cell.seeds(seed)[1])
                 drive.window(kind, seconds, False, dev)
                 kind.collect()
                 yield c.name, "program", seed, judged(c, kind, a)
             if seed in control_seeds:
-                kind = drive.KINDS[c.traffic["kind"]](op, a, c.traffic,
-                                                      cell.seeds(seed)[1])
-                control_outputs(kind, a, BELOW[config["dtype"]], dev)
+                kind = kinds[c.name](op, a, c.traffic, cell.seeds(seed)[1])
+                kind.control(a, BELOW[config["dtype"]], dev)
                 yield c.name, "control", seed, judged(c, kind, a)
             del op, kind
 

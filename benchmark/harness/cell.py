@@ -135,7 +135,7 @@ def run(spec: Spec, workload: str, seed: int, seconds: float, trace: bool,
     plan, pack_s = pack(a, cell.config)
     op, operator_s = operator(plan, cell.config, cell.traffic, dev)
     del plan
-    kind = drive.KINDS[cell.traffic["kind"]](op, a, cell.traffic, rng)
+    kind = spec.kind(cell.traffic["kind"])(op, a, cell.traffic, rng)
     if trace and dev.type == "cuda":
         profile.warm()
     setup_s = time.perf_counter() - t0 - kind.reference_s

@@ -6,9 +6,12 @@ Every kind makes its inputs from the run's seed, warms up every shape it
 will use (that counts as set-up), and then serves one request per
 ``unit()`` call in a closed loop of one client; ``window`` runs those
 units back to back for the run's seconds.  After the window a kind hands
-its outputs to ``judge``, which compares them with the plain reference.
+its outputs to ``judge``, which compares them with the plain reference;
+``control`` puts the control's outputs (the reference one precision
+lower) where the kind keeps the program's, for ``benchmark/control.py``.
 
-Kinds:
+Kinds (a mix may also name a kind of its own, ``kinds/<kind>.py``, which
+``Spec.kind`` finds by name):
 
 * ``cg``: ``cg_solve_f64`` to ``rtol * ||b||`` or ``maxiter``, b cycling
   through a pool of ``pool`` right-hand sides A (1 + u), u ~ U[0, 1),
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..reference.csr import Csr, product, relative_residual, scaled_error
+from ..reference.lower import cg_below, product_below
 from . import profile
 from .roofline import model1_seconds
 
@@ -101,6 +105,11 @@ class Kind:
     def judge(self, a: Csr, limits: Dict[str, float]) -> Dict[str, tuple]:
         raise NotImplementedError
 
+    def control(self, a: Csr, below: str, device) -> None:
+        """Put the control's outputs where the kind keeps the program's:
+        the reference computed in ``below`` (``reference/lower.py``)."""
+        raise NotImplementedError
+
 
 class Cg(Kind):
     def __init__(self, op, a: Csr, p: dict, rng: np.random.Generator):
@@ -151,6 +160,12 @@ class Cg(Kind):
         return {"residual": (res, limits["residual"]),
                 "failed": (self.failed, limits["failed"])}
 
+    def control(self, a, below, device):
+        self.kept = [(k, cg_below(a, b, float(self.p["rtol"]),
+                                  int(self.p["maxiter"]), below, device)[0])
+                     for k, b in enumerate(self.pool)]
+        self.failed = 0
+
 
 class Chain(Kind):
     def __init__(self, op, a: Csr, p: dict, rng: np.random.Generator):
@@ -178,6 +193,9 @@ class Chain(Kind):
     def judge(self, a, limits):
         return {"y_err": (scaled_error(a, self.x, self.y), limits["y_err"])}
 
+    def control(self, a, below, device):
+        self.y = product_below(a, self.x, below)
+
 
 class Spmm(Kind):
     def __init__(self, op, a: Csr, p: dict, rng: np.random.Generator):
@@ -201,6 +219,9 @@ class Spmm(Kind):
 
     def judge(self, a, limits):
         return {"y_err": (scaled_error(a, self.X, self.y), limits["y_err"])}
+
+    def control(self, a, below, device):
+        self.y = product_below(a, self.X, below)
 
 
 KINDS = {"cg": Cg, "chain": Chain, "spmm": Spmm}

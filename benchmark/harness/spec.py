@@ -9,7 +9,11 @@ entries and never edits a file that is there:
   matrix's generator and its parameters, the dtype, the packing options;
 * ``matrices/<generator>.py``: the generator, plain NumPy;
 * ``traffic/<traffic>.json``: the parameters of one traffic mix, read by
-  the one general driver (``harness/drive.py``);
+  the one general driver (``harness/drive.py``); its ``kind`` names a
+  kind of ``drive.KINDS`` or a file of its own:
+* ``kinds/<kind>.py``: ``KIND``, a subclass of ``drive.Kind`` that makes
+  a request kind's inputs, serves its requests, judges its outputs and
+  puts its control in the program's place;
 * ``limits/<workload>.json``: the limit of each number the run compares;
 * ``metrics/<metric>.py``: ``read(run)``, the arithmetic of one metric;
   a metric named ``<base>.<part>`` (one quantity split by the end-to-end
@@ -99,3 +103,13 @@ class Spec:
         ``VALUES_SEEDED``."""
         return self._module("matrices", name)
 
+    def kind(self, name: str) -> type:
+        """The request kind a traffic mix names: ``drive.KINDS[name]``,
+        else ``KIND`` of ``kinds/<name>.py``."""
+        from . import drive
+        if name in drive.KINDS:
+            return drive.KINDS[name]
+        kind = self._module("kinds", name).KIND
+        if not (isinstance(kind, type) and issubclass(kind, drive.Kind)):
+            raise TypeError(f"kinds/{name}.py: KIND is not a drive.Kind")
+        return kind
