@@ -366,6 +366,27 @@ def plan_to_arrays(plan, dtype: str = "f32", _res_depth: int = 0):
     return meta, arrays
 
 
+def table_counts(plan: WPlan, meta: WMeta, arrays: Dict) -> Dict[str, int]:
+    """What the lowered tables hold, counted once at set-up: ``slots``,
+    the value slots that one K6 step or pass reads (every vreg of a sell
+    segment and every vreg whose total a long row reads, SUB * LANES
+    slots each with their padding, and one slot a residue entry, which K6
+    sums by its trees; a residue sub-plan's tables only the glue reads);
+    ``nnz``; ``residue_nnz``, the entries of ``plan.overflow``; and
+    ``long_nnz``, the entries of long rows."""
+    read = [np.zeros(nv, dtype=bool) for _, _, nv in meta.streams]
+    for stream, off, n_slices, w8, _ in meta.sell_segs:
+        read[stream][off:off + n_slices * w8] = True
+    for (stream, _), idx in zip(meta.long_groups, arrays["long_idx"]):
+        idx = np.asarray(idx)
+        read[stream][idx[idx < read[stream].size]] = True
+    residue = 0 if plan.overflow is None else int(plan.overflow.nnz)
+    vregs = sum(int(r.sum()) for r in read)
+    return dict(slots=vregs * SUB * LANES + residue, nnz=int(plan.nnz),
+                residue_nnz=residue,
+                long_nnz=int(plan.census["nnz_long"]))
+
+
 def prep_x(meta: WMeta, x, col_perm=None) -> np.ndarray:
     """Host-side: pad x to the (s_rows,128) table, float64 for f64 plans
     and float32 otherwise (bf16 plans take an f32 x, as the reference's);
@@ -754,6 +775,9 @@ class TorchSpMV:
             self.device = torch.device(device)
             with trace.span("op.lower"):
                 self._meta, arrays = plan_to_arrays(self.plan, dtype)
+                for k, n in table_counts(self.plan, self._meta,
+                                         arrays).items():
+                    trace.count(k, n)
             with trace.span("op.schedule"):
                 resident.prepare(self._meta, arrays)
             self.force_streamed = force_streamed
