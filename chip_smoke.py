@@ -126,7 +126,13 @@ Phases, one or more printed lines each, every one raising on failure:
      iterations, the ms per iteration with and without the read-back, and
      the SpMV's share; each SpMV is exactly one K6 launch, and K1/K3 and
      K2/K4 never run; the SpMV of CG's small plan as one K6 step against
-     the reference-order glue it replaces.
+     the reference-order glue it replaces.  CG's two scalar kernels
+     (Triton, examples/cg_solver.py: the stop test with alpha, and p's
+     factor with rs and the count) are held bit for bit against their
+     plain versions at every iteration of each solve and K past its stop
+     (outputs, live, rs, the count); a replay of the solve's graph runs K
+     iterations (the device's count); they are timed alone against their
+     plain versions for the kernels line.
   9. multi-chip: MultiChipSpMV (dasp_tpu_torch/parallel.py) with 4 chips
      on the one card, on the reference dry run's input
      (powerlaw_like(100,000, 1.8, 500,000, col_alpha=1.6), seed 11) in
@@ -162,7 +168,8 @@ Phases 4, 7, 8, 9 and 10 each set the kernels' launch counts to 0 before
 they run and read them after; the kernels line carries phase 4's, but for
 K1/K3, which no user path with a stream runs any more: theirs are counted
 over the reference-order run at the end of phase 4, as T1-T4's are over
-their sweeps.  It then
+their sweeps, and CG's scalar kernels, whose wrappers' are counted over
+each phase 8 solve of their dtype.  It then
 prints the kernels' JSON line and, last, the device JSON line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -240,6 +247,14 @@ PROBE_MB = 24           # T4's row in the kernels line: a stream that fits L2
 MC_CHIPS = 4            # chips of the multi-chip phase, all on the one card
 PROBE_SCALES = (1, 8)   # T1-T3 at the tools' sizes and 8x (past the L2)
 L2_BYTES = 50e6         # the H100's L2 (NVIDIA's data sheet)
+# CG's scalar kernels (Triton, dasp_tpu_torch/examples/cg_solver.py) ->
+# the lines of the reference's loop body whose scalars they compute
+CG_SCALARS = {
+    "cg_alpha": "examples/cg_solver.py:133",
+    "cg_alpha_f64": "examples/cg_solver.py:133",
+    "cg_advance": "examples/cg_solver.py:137",
+    "cg_advance_f64": "examples/cg_solver.py:137",
+}
 
 
 def log(msg):
@@ -944,11 +959,76 @@ def bench_phase(dev, arms, card):
     return out
 
 
+def held_cg_scalars(op, b, tol, maxiter, steps):
+    """CG on ``op`` one eager iteration at a time for ``steps``
+    iterations, each call of the scalar kernels (``alpha``, ``advance``)
+    held bit for bit against ``alpha_plain`` / ``advance_plain`` on the
+    same inputs: the output, ``live`` and the scalars' words (rs, the
+    count, tol2, maxiter).  Raises on a difference; returns the state
+    (its x, rs and count where the kernels left them)."""
+    import torch
+    from dasp_tpu_torch.examples import cg_solver
+    st = cg_solver.CGIteration(op, op.perm_in(b), tol, maxiter)
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    bad = torch.zeros((), dtype=torch.int64, device=op.device)
+
+    def held(kernel, plain):
+        def both(v):
+            before = st.scalars.clone(), st.live.clone()
+            got = kernel(v)
+            after = st.scalars.clone(), st.live.clone()
+            st.scalars.copy_(before[0])
+            st.live.copy_(before[1])
+            want = plain(v)
+            for a, w in ((got.view(ints[got.dtype]),
+                          want.view(ints[want.dtype])),
+                         (after[0], st.scalars), (after[1], st.live)):
+                bad.add_(torch.ne(a, w).sum())
+            st.scalars.copy_(after[0])
+            st.live.copy_(after[1])
+            return got
+        return both
+    st.alpha = held(st.alpha, st.alpha_plain)
+    st.advance = held(st.advance, st.advance_plain)
+    for _ in range(steps):
+        st.raw_step()
+    del st.alpha, st.advance
+    if int(bad):
+        raise AssertionError(f"cg {op.dtype}: the scalar kernels differ "
+                             f"from their plain versions in {int(bad)} "
+                             f"words over {steps} iterations")
+    return st
+
+
+def cg_scalar_alone(st, d):
+    """(ms, plain ms, bound ms, bound by, None) of each scalar kernel of
+    ``st``'s dtype alone: ALONE_REPS launches a graph replay."""
+    import torch
+    el = 8 if d == "f64" else 4
+    pap = torch.dot(st.p, st.matvec(st.p))
+    rs_new = torch.dot(st.r, st.r)
+    # alpha: rs, p . Ap, tol2, count, maxiter in; live, alpha out;
+    # advance: live, rs_new, rs, count in; the factor, rs, count out
+    rows = {}
+    for base, kernel, plain, arg, nbytes in (
+            ("cg_alpha", st.alpha, st.alpha_plain, pap, 3 * el + 25),
+            ("cg_advance", st.advance, st.advance_plain, rs_new,
+             4 * el + 17)):
+        ms, plain_ms = (time_ms(graphed(lambda f=f: f(arg), ALONE_REPS), 5)
+                        / ALONE_REPS for f in (kernel, plain))
+        rows[inst(base, d)] = (ms, plain_ms, *bound(nbytes, 1, d), None)
+    return rows
+
+
 def examples_phase(dev, card):
     """cg_solve (f32, fp64) at n = 65,536 and pagerank at n = 100,000 to
     the originals' thresholds, with their cost per iteration; each SpMV
-    exactly one K6 launch.  Returns the launch counts of that run; then
-    times CG's SpMV as one K6 step against the reference-order glue."""
+    exactly one K6 launch.  CG's scalar kernels are held bit for bit
+    against their plain versions at each solve's scalars, counted (their
+    wrappers' launches over the solve) and timed alone; a replay of the
+    solve's graph runs K iterations.  Returns the K6 launch counts of that run and the scalar
+    kernels' rows of the kernels line; then times CG's SpMV as one K6 step
+    against the reference-order glue."""
     import numpy as np
     import dasp_tpu_torch as dt
     from dasp_tpu_torch.examples import cg_solver, pagerank
@@ -961,7 +1041,7 @@ def examples_phase(dev, card):
     x_true = rng.standard_normal(n)
     b = csr.spmv(x_true)
     plan = dt.build_wplan(csr, shared)
-    cg_ops = {}
+    cg_ops, scalar_rows = {}, {}
     for d, limit in (("f32", 1e-3), ("f64", 1e-6)):
         op = cg_ops[d] = dt.SpMVOperator(plan, dtype=d, device=dev,
                                          force_streamed=True)
@@ -970,15 +1050,54 @@ def examples_phase(dev, card):
         if moved != {inst("resident", d): 1}:
             raise AssertionError(f"cg {d}: one SpMV launched {moved}, "
                                  f"expected one K6")
+        # cg_solve_f64's tol and maxiter; f32: the default maxiter of 500
+        # ends before f32 converges at this n (it takes ~1,400
+        # iterations), tol stays the default
+        tol = 1e-10 * float(np.linalg.norm(b)) if d == "f64" else 1e-6
+        bd = b.astype(np.float64 if d == "f64" else np.float32)
+        cg_solver.launches.update(dict.fromkeys(cg_solver.launches, 0))
         t = time.perf_counter()
         if d == "f64":
             x, res, iters = cg_solver.cg_solve_f64(op, b)
         else:
-            # the default maxiter of 500 ends before f32 converges at
-            # this n (it takes ~1,400 iterations); tol stays the default
-            x, res, iters = cg_solver.cg_solve(op, b.astype(np.float32),
-                                               maxiter=4000)
+            x, res, iters = cg_solver.cg_solve(op, bd, maxiter=4000)
         wall = time.perf_counter() - t
+        ran = dict(cg_solver.launches)
+        mine = [inst(k, d) for k in ("cg_alpha", "cg_advance")]
+        if not (ran[mine[0]] == ran[mine[1]] > 0
+                and ran[mine[0]] % cg_solver.K == 0
+                and not any(n for k, n in ran.items() if k not in mine)):
+            raise AssertionError(f"cg {d}: the scalar kernels' wrappers "
+                                 f"launched {ran}")
+        # the kept state with every iteration live: one replay counts K
+        kept = op._cg_state
+        kept.restart(op.perm_in(bd), 0.0, sys.maxsize)
+        kept.step()
+        per_replay = kept.read()[1]
+        if per_replay != cg_solver.K:
+            raise AssertionError(f"cg {d}: a replay of the solve's graph "
+                                 f"ran {per_replay} iterations, expected "
+                                 f"{cg_solver.K}")
+        st = held_cg_scalars(op, bd, tol, 4000, iters + cg_solver.K)
+        if not (int(st.count) == iters and np.array_equal(
+                op.perm_out(st.x.cpu().numpy()), x)):
+            raise AssertionError(f"cg {d}: the eager run of the held "
+                                 f"kernels ran {int(st.count)} iterations "
+                                 f"or left another x than cg_solve's "
+                                 f"{iters}")
+        alone = cg_scalar_alone(st, d)
+        for k in mine:
+            scalar_rows[k] = (ran[k], *alone[k])
+        del st
+        log(f"[examples] cg_solve {d}: the scalar kernels == their plain "
+            f"versions bit for bit at each of {iters} iterations and "
+            f"{cg_solver.K} past the stop; wrapper launches over the solve "
+            f"(3 warm-ups and the capture) {ran[mine[0]]} each; a replay "
+            f"runs {per_replay} iterations; alone "
+            + ", ".join(f"{k} {alone[k][0] * 1e3:.2f} us (plain "
+                        f"{alone[k][1] * 1e3:.2f}, bound "
+                        f"{alone[k][2] * 1e3:.5f})" for k in mine)
+            + f" [{card}]")
         err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
         if not (x.shape == (n,) and err < limit):
             raise AssertionError(f"cg_solve {d}: solution error {err:.3e} "
@@ -1031,7 +1150,7 @@ def examples_phase(dev, card):
             f"{us[0]:.2f} us, as the reference-order glue (K1/K3, the "
             f"glue, K2/K4) {us[1]:.2f} us (graph replays of {ALONE_REPS})"
             f" [{card}]")
-    return counts
+    return counts, scalar_rows
 
 
 def n_outgathers(meta):
@@ -2197,7 +2316,7 @@ def main():
     # -- 8. the examples ---------------------------------------------------------
     t = time.perf_counter()
     zero_counts()
-    ex_launches = examples_phase(dev, card)
+    ex_launches, cg_scalar_rows = examples_phase(dev, card)
     log(f"[examples] kernel launches in this phase: {ex_launches}")
     if not (all(ex_launches[k] for k in ("resident", "resident_f64"))
             and not any(ex_launches[inst(k, d)] for k in (
@@ -2222,7 +2341,14 @@ def main():
          "replaces": r, "launches": launches[k], "max_abs_err": err[k],
          "ms": alone[k][0], "plain_ms": alone[k][1], "bound_ms": alone[k][2],
          "bound_by": alone[k][3], "library_ms": alone[k][4]}
-        for k, (s, r) in INSTANCES.items()]}))
+        for k, (s, r) in INSTANCES.items()] + [
+        {"name": k, "route": "triton",
+         "source": "dasp_tpu_torch/examples/cg_solver.py", "replaces": r,
+         "launches": cg_scalar_rows[k][0], "max_abs_err": 0.0,
+         "ms": cg_scalar_rows[k][1], "plain_ms": cg_scalar_rows[k][2],
+         "bound_ms": cg_scalar_rows[k][3], "bound_by": cg_scalar_rows[k][4],
+         "library_ms": None}
+        for k, r in CG_SCALARS.items()]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dasp_tpu_torch import DaspConfig, SpMVOperator, build_wplan, trace
-from dasp_tpu_torch.examples.cg_solver import build_spd, cg_solve
+from dasp_tpu_torch.examples.cg_solver import K, build_spd, cg_solve
 from dasp_tpu_torch.io.build import ensure_built
 from dasp_tpu_torch.sparse import mixed_categories
 
@@ -64,10 +64,14 @@ def test_each_cg_solve_is_one_span_tiled_by_its_three_phases(spd):
         assert s.parent is None
         kids = _kids(recs, s)
         _assert_tiles(s, kids, ("cg.setup", "cg.iterate", "cg.finish"))
-        assert kids[1].counts == {"iterations": it} and it > 0
+        reads = -(-it // K)
+        assert kids[1].counts == {"iterations": it, "readbacks": reads,
+                                  "frozen": reads * K - it} and it > 0
         # on the CPU, which keeps no allocator statistics: the tensors
-        # of the solve's state (b, x, r, p, rs)
-        assert s.counts == {"state_tensors": 5}
+        # of the solve's state (b, x, r, p; the device's scalars, rs and
+        # count their views, tol2, maxiter, live; the host's copy of
+        # scalars)
+        assert s.counts == {"state_tensors": 11}
         assert not any(r.profiled for r in [s] + kids)
 
 
